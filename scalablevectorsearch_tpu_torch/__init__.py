@@ -1,0 +1,39 @@
+"""scalablevectorsearch_tpu_torch: the PyTorch/CUDA port of
+scalablevectorsearch_tpu.
+
+Static Vamana build and batched search over f32/bf16 datasets, flat
+exhaustive search for ground truth, and recall, in PyTorch on one NVIDIA
+H100; the per-iteration beam step is a CUDA kernel written for Hopper
+(``csrc/beam_step.cu``).  The JAX package stays the reference this port is
+tested against.  Tensors are created on ``device="cuda"`` unless a caller
+passes another device; nothing moves to the CPU by itself.
+"""
+
+__version__ = "0.1.0"
+
+from .core.data import VectorDataset
+from .core.graph import NeighborGraph
+from .core.io import (generate_test_dataset, read_npy, read_vecs, write_npy,
+                      write_vecs)
+from .core.query_result import QueryResult
+from .core.recall import k_recall_at_n
+from .index.flat import FlatIndex, exhaustive_search
+from .index.vamana.index import VamanaIndex
+from .index.vamana.params import (SearchBufferConfig, VamanaBuildParameters,
+                                  VamanaSearchParameters)
+from .ops.distance import DistanceType, as_distance
+from .orchestrators.vamana import Vamana
+
+L2 = DistanceType.L2
+MIP = DistanceType.MIP
+Cosine = DistanceType.Cosine
+
+__all__ = [
+    "VectorDataset", "NeighborGraph", "QueryResult",
+    "read_vecs", "write_vecs", "read_npy", "write_npy",
+    "generate_test_dataset", "k_recall_at_n",
+    "DistanceType", "as_distance", "L2", "MIP", "Cosine",
+    "FlatIndex", "exhaustive_search",
+    "VamanaIndex", "VamanaBuildParameters", "VamanaSearchParameters",
+    "SearchBufferConfig", "Vamana",
+]
