@@ -7,20 +7,32 @@ sm_90a card) and the CUDA toolkit:
 
 Phases, one line of detail each (any failure exits non-zero):
   1. device: the card, its power limit, the fp32 matmul flags (TF32 off);
-  2. build: nvcc builds csrc/beam_step.cu for sm_90a from the checkout;
+  2. build: nvcc builds csrc/beam_step.cu (both entry points, beam_step and
+     beam_step_lvq) for sm_90a from the checkout; ptxas registers per
+     kernel instance;
   3. kernels: beam_step's CUDA kernel against its plain PyTorch version on
      the card, 3 metrics x {f32, bf16} rows at the serving and the build
      shape, plus median times of both;
-  4. main path: a 100k x 128 clustered dataset (seed 42), Vamana build
+  4. kernels, LVQ: beam_step_lvq against beam_step_lvq_plain, 3 metrics x
+     both shapes (n_dead 28 at the serving shape, 0 at the build shape),
+     exact and real inputs, and against beam_step over the decoded rows;
+     median times and the bound;
+  5. main path: a 100k x 128 clustered dataset (seed 42), Vamana build
      (R=32, window 100, pool 300, prune_to 28, alpha 1.1, sampled
      entries), exhaustive ground truth, bf16 packed serving of 5000
      queries, window sweep to recall@10 >= 0.9, QPS over 5 repetitions;
      the kernel's launch count must grow during build and during serving;
-  5. golden gate: the L2, MIP and cosine rows of
+  6. LVQ path, over the main path's graph: LVQ-8 packed serving (window
+     sweep to recall@10 >= 0.9, QPS), LVQ-8 unpacked and two-level LVQ8x8
+     packed (rerank) at that window; then an LVQ-8 build at 100k x 128
+     with the main path's parameters and its sweep; beam_step_lvq's launch
+     count must grow in every one of them;
+  7. golden gate: the L2, MIP and cosine rows of
      data/golden/vamana_reference.json within +-0.05 recall (cosine
      +-0.10, see GOLDEN_TOL).
-The line before the last is the kernels' JSON summary; the last line is
-``{"ok": true, "device": {...}}``.
+Each path (5, 6) starts with every launch count at 0 and reads them at its
+end.  The line before the last is the kernels' JSON summary; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -47,6 +59,9 @@ WINDOWS = (11, 12, 13, 14, 16, 20, 24, 32, 48, 64, 96, 128)
 # to that measured spread; L2 and MIP are stable and keep +-0.05.
 GOLDEN_TOL = {"L2": 0.05, "MIP": 0.05, "Cosine": 0.10}
 TIMING_REPS = 20
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak
+F32_FLOPS_PER_S = 67e12        # H100 SXM fp32 peak outside the tensor cores
+LVQ_DEAD = {"serving": 28, "build": 0}   # n_dead per shape
 
 
 def log(msg: str) -> None:
@@ -76,15 +91,27 @@ def phase_device() -> dict:
     return device
 
 
+def ptxas_report(text: str) -> list:
+    """One entry per kernel instance (its mangled name carries the row
+    loader, DenseRows<...> or LvqRows, and the query type): what ptxas said
+    about registers, spills and shared memory."""
+    out, name = [], None
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif name and ("registers" in ln or "spill" in ln):
+            out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
+    return out
+
+
 def phase_build() -> float:
     from scalablevectorsearch_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
     path = _build.build("beam_step")
     seconds = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in path.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "smem" in ln]
-    log(f"build: beam_step.cu -> {path.name} in {seconds:.2f} s; "
-        + " | ".join(ptxas))
+    log(f"build: beam_step.cu -> {path.name} in {seconds:.2f} s")
+    for line in ptxas_report(path.with_suffix(".log").read_text()):
+        log(f"build: ptxas {line}")
     return seconds
 
 
@@ -136,6 +163,70 @@ def median_ms(fn, reps: int = TIMING_REPS) -> float:
     return statistics.median(times)
 
 
+def make_lvq_case(rng, shape, n_dead: int, grid: bool):
+    """beam_step_lvq inputs on the card: the beam and candidate ids of
+    :func:`make_case`, int8 code rows with per-id scale and bias, a mean,
+    and queries, zero in the ``n_dead`` trailing lanes.  ``grid``: codes in
+    [-16, 15], scales 2^-4 or 2^-5, biases, mean and queries on the 1/32
+    grid within [-1, 1], so every decoded value, product and sum is exact
+    in f32 and the kernel must match the plain version bit for bit.
+    Otherwise the codes, scales, biases and mean are those of
+    ``LVQDataset.compress`` over a normal table of ``d - n_dead`` columns
+    (real LVQ-8 data), and the queries are normal."""
+    from scalablevectorsearch_tpu_torch.quantization.lvq import LVQDataset
+    B, C, K, d, _window, _m = shape
+    beam_keys, beam_packed, _vecs, cand_ids, _q = make_case(
+        rng, (B, C, K, 4, 1, 1), grid=False)
+    n_ids = max(400, 2 * C)          # make_case's id range
+    live = d - n_dead
+
+    def on_grid(x):
+        return np.clip(np.rint(x * 8), -32, 32) / np.float32(32)
+
+    if grid:
+        codes = rng.integers(-16, 16, size=(n_ids, d))
+        scales = 2.0 ** -rng.integers(4, 6, size=n_ids)
+        biases = on_grid(rng.normal(size=n_ids))
+        mean = on_grid(rng.normal(size=d))
+        queries = on_grid(rng.normal(size=(B, d)))
+    else:
+        lvq = LVQDataset.compress(rng.normal(size=(n_ids, live)), bits=8,
+                                  device="cpu")
+        if lvq.padded_dim != d:
+            raise ValueError(f"{live} live columns pad to {lvq.padded_dim}, "
+                             f"not {d}")
+        codes, scales, biases, mean = (t[:n_ids].numpy() for t in (
+            lvq.codes, lvq.scales, lvq.biases, lvq.mean))
+        mean = mean.copy()
+        queries = rng.normal(size=(B, d))
+    codes[:, live:] = 0
+    mean[live:] = 0
+    queries[:, live:] = 0
+    cl = cand_ids.clamp_min(0).cpu().numpy()
+    rows = [torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in (
+        codes.astype(np.int8)[cl], scales.astype(np.float32)[cl],
+        biases.astype(np.float32)[cl], mean.astype(np.float32)[None, :],
+        queries.astype(np.float32))]
+    return [beam_keys, beam_packed, *rows[:4], cand_ids, rows[4]]
+
+
+def step_bound(args, m: int, flops_per_value: int) -> dict:
+    """Least time for one beam step on these inputs: every input read once
+    and the five outputs written once, over the HBM peak, against the f32
+    operations on the (B, K, d) row block over the f32 peak."""
+    beam_keys, rows = args[0], args[2]
+    b, c = beam_keys.shape
+    k = rows.shape[1]
+    bytes_moved = sum(t.numel() * t.element_size() for t in args) \
+        + b * (c * 8 + m * 4 + k * 8)
+    flops = flops_per_value * rows.numel()
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return {"bytes": bytes_moved, "flops": flops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def phase_kernels() -> dict:
     """beam_step kernel vs beam_step_plain on the card.  Grid inputs: all
     five outputs identical.  Real-valued inputs: keys within rtol/atol 1e-5
@@ -184,11 +275,16 @@ def phase_kernels() -> dict:
             kw = dict(metric=0, window=window, m=m)
             ms = median_ms(lambda: bs.beam_step(*args, **kw))
             plain_ms = median_ms(lambda: bs.beam_step_plain(*args, **kw))
+            # per value: a multiply-add for the dot and one for the norm
+            bound = step_bound(args, m, 4)
             timings[f"{label}_{'bf16' if vdt == torch.bfloat16 else 'f32'}"] \
-                = {"ms": ms, "plain_ms": plain_ms}
+                = {"ms": ms, "plain_ms": plain_ms, **bound}
             log(f"kernels: beam_step {label} B,C,K,d={shape[:4]} "
                 f"{vdt} L2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                f"(median of {TIMING_REPS})")
+                f"(median of {TIMING_REPS}); bound {bound['bound_ms']:.4f} "
+                f"ms by {bound['bound_by']} ({bound['bytes']} bytes, "
+                f"{bound['flops']} flops) = {bound['bound_ms'] / ms:.1%} "
+                f"of it")
     if failures:
         raise AssertionError("beam_step kernel vs plain: "
                              + "; ".join(failures))
@@ -199,18 +295,94 @@ def phase_kernels() -> dict:
     return {"max_abs_err": max_err, "timings": timings}
 
 
+def phase_kernels_lvq() -> dict:
+    """beam_step_lvq kernel vs beam_step_lvq_plain on the card.  Exact
+    inputs: all five outputs identical.  Real inputs: keys within rtol/atol
+    1e-5, pool ids identical, beam ids and pops identical except near-ties
+    (reported; at most 0.1% of rows).  Also against beam_step over the
+    decoded rows (dead lanes zero, as the JAX package's decoded path): keys
+    within rtol/atol 1e-4, ids identical except near-ties."""
+    from scalablevectorsearch_tpu_torch.ops.kernels import beam_step as bs
+    from scalablevectorsearch_tpu_torch.quantization.lvq import affine_decode
+    rng = np.random.default_rng(1)
+    max_err, timings, failures = 0.0, {}, []
+    swapped = swapped_dec = rows = 0
+    for label, shape in (("serving", SERVING_SHAPE), ("build", BUILD_SHAPE)):
+        _B, _C, _K, d, window, m = shape
+        n_dead = LVQ_DEAD[label]
+        for metric in (0, 1, 2):
+            kw = dict(metric=metric, window=window, m=m, n_dead=n_dead)
+            tag = f"lvq {label}/m{metric}/dead{n_dead}"
+            grid = make_lvq_case(rng, shape, n_dead, grid=True)
+            got = bs.beam_step_lvq(*grid, **kw)
+            want = bs.beam_step_lvq_plain(*grid, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                failures.append(f"{tag} exact inputs differ")
+            real = make_lvq_case(rng, shape, n_dead, grid=False)
+            got = bs.beam_step_lvq(*real, **kw)
+            want = bs.beam_step_lvq_plain(*real, **kw)
+            gk, gp, gpop, gpk, gpi = got
+            wk, wp, wpop, wpk, wpi = want
+            fin = torch.isfinite(wk)
+            if not torch.equal(fin, torch.isfinite(gk)):
+                failures.append(f"{tag} inf slots")
+            max_err = max(max_err, float((gk[fin] - wk[fin]).abs().max()))
+            if not torch.allclose(gk, wk, rtol=1e-5, atol=1e-5) or \
+                    not torch.allclose(gpk, wpk, rtol=1e-5, atol=1e-5) or \
+                    not torch.equal(gpi, wpi):
+                failures.append(f"{tag} real keys/pool")
+            off = ((gp != wp) & fin).any(1) | (gpop != wpop).any(1)
+            swapped += int(off.sum())
+            rows += off.numel()
+            if float(off.float().mean()) > 1e-3:
+                failures.append(f"{tag} real ids {int(off.sum())} rows")
+            # the same step over the decoded f32 rows
+            bk, bp, codes, sc, bi, mean, cids, q = real
+            dec = affine_decode(codes, sc, bi, mean[0], bits=8,
+                                dim=d - n_dead)
+            dk, dp, dpop, dpk, dpi = bs.beam_step(
+                bk, bp, dec, cids, q, metric=metric, window=window, m=m)
+            if not torch.allclose(gk, dk, rtol=1e-4, atol=1e-4) or \
+                    not torch.allclose(gpk, dpk, rtol=1e-4, atol=1e-4) or \
+                    not torch.equal(gpi, dpi):
+                failures.append(f"{tag} vs beam_step on decoded rows")
+            off = ((gp != dp) & fin).any(1) | (gpop != dpop).any(1)
+            swapped_dec += int(off.sum())
+            if float(off.float().mean()) > 1e-3:
+                failures.append(f"{tag} vs decoded: ids {int(off.sum())} "
+                                "rows")
+        args = make_lvq_case(rng, shape, n_dead, grid=False)
+        kw = dict(metric=0, window=window, m=m, n_dead=n_dead)
+        ms = median_ms(lambda: bs.beam_step_lvq(*args, **kw))
+        plain_ms = median_ms(lambda: bs.beam_step_lvq_plain(*args, **kw))
+        # per value: decode (add, multiply, add) + the two multiply-adds
+        bound = step_bound(args, m, 7)
+        timings[label] = {"ms": ms, "plain_ms": plain_ms, **bound}
+        log(f"kernels: beam_step_lvq {label} B,C,K,d={shape[:4]} "
+            f"n_dead {n_dead} L2: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms (median of {TIMING_REPS}); bound {bound['bound_ms']:.4f} "
+            f"ms by {bound['bound_by']} ({bound['bytes']} bytes, "
+            f"{bound['flops']} flops) = {bound['bound_ms'] / ms:.1%} of it")
+    if failures:
+        raise AssertionError("beam_step_lvq kernel: " + "; ".join(failures))
+    log(f"kernels: beam_step_lvq matches plain: 2 shapes x 3 metrics; exact "
+        f"inputs identical, real inputs max_abs_err {max_err:.3g}, near-tie "
+        f"rows with other ids or pops {swapped} of {rows}; vs beam_step on "
+        f"decoded rows {swapped_dec} of {rows}")
+    return {"max_abs_err": max_err, "timings": timings}
+
+
 def phase_main_path() -> dict:
     import scalablevectorsearch_tpu_torch as svt
     from scalablevectorsearch_tpu_torch.index.vamana import search as smod
     from scalablevectorsearch_tpu_torch.index.vamana.index import (
         dequantize_queries, prepare_query_upload)
     from scalablevectorsearch_tpu_torch.ops.kernels.beam_step import (
-        beam_step)
+        beam_step, beam_step_lvq)
     data, queries = svt.generate_test_dataset(100_000, 5000, 128, seed=42)
-    params = svt.VamanaBuildParameters(
-        alpha=1.1, graph_max_degree=32, window_size=100,
-        max_candidate_pool_size=300, prune_to=28)
-    beam_step.launches = 0
+    params = main_path_params()
+    beam_step.launches = beam_step_lvq.launches = 0
     t0 = time.perf_counter()
     index = svt.Vamana.build(params, data, "l2", sampled_entries=True)
     torch.cuda.synchronize()
@@ -221,20 +393,9 @@ def phase_main_path() -> dict:
         f"{build_launches}")
     t0 = time.perf_counter()
     gt = svt.exhaustive_search(data, queries, 10)
-    gt_s = time.perf_counter() - t0
+    log(f"main path: ground truth {time.perf_counter() - t0:.2f} s")
     index.enable_packed_serving()
-    sweep, window, recall = [], None, 0.0
-    for w in WINDOWS:
-        index.search_window_size = w
-        recall = svt.k_recall_at_n(gt, index.search(queries, 10))
-        sweep.append(f"{w}:{recall:.4f}")
-        if recall >= 0.9:
-            window = w
-            break
-    log(f"main path: ground truth {gt_s:.2f} s; recall@10 sweep "
-        + " ".join(sweep))
-    if window is None:
-        raise AssertionError("no window reached recall@10 >= 0.9")
+    window, recall = sweep(index, queries, gt, "main path")
     before = beam_step.launches
     times = []
     for _ in range(5):
@@ -266,7 +427,136 @@ def phase_main_path() -> dict:
         raise AssertionError("beam_step kernel not launched on the main "
                              "path (build %d, serving %d)"
                              % (build_launches, serve_launches))
-    return {"launches": total_launches}
+    return {"launches": total_launches, "index": index, "data": data,
+            "queries": queries, "gt": gt}
+
+
+def main_path_params():
+    import scalablevectorsearch_tpu_torch as svt
+    return svt.VamanaBuildParameters(
+        alpha=1.1, graph_max_degree=32, window_size=100,
+        max_candidate_pool_size=300, prune_to=28)
+
+
+def sweep(index, queries, gt, label: str):
+    """First window of WINDOWS with recall@10 >= 0.9; fails if none."""
+    import scalablevectorsearch_tpu_torch as svt
+    steps = []
+    for w in WINDOWS:
+        index.search_window_size = w
+        recall = svt.k_recall_at_n(gt, index.search(queries, 10))
+        steps.append(f"{w}:{recall:.4f}")
+        if recall >= 0.9:
+            log(f"{label}: recall@10 sweep " + " ".join(steps))
+            return w, recall
+    raise AssertionError(f"{label}: no window reached recall@10 >= 0.9 "
+                         f"({' '.join(steps)})")
+
+
+def timed_serving(index, queries, gt, label: str, f32_recall: float
+                  ) -> dict:
+    """recall@10 and QPS (median of 5 search_async calls) at the index's
+    window, and the beam_step_lvq launches of those calls (must be > 0)."""
+    import scalablevectorsearch_tpu_torch as svt
+    from scalablevectorsearch_tpu_torch.ops.kernels.beam_step import (
+        beam_step_lvq)
+    before = beam_step_lvq.launches
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        res = index.search_async(queries, 10).result()
+        times.append(time.perf_counter() - t0)
+    launches = beam_step_lvq.launches - before
+    recall = svt.k_recall_at_n(gt, res)
+    qps = len(queries) / statistics.median(times)
+    log(f"lvq path: {label} window {index.search_window_size} recall@10 "
+        f"{recall:.4f} (f32 index at this window {f32_recall:.4f}); "
+        f"search_async x5 median {statistics.median(times) * 1e3:.2f} ms "
+        f"-> {qps:.1f} QPS; beam_step_lvq launches {launches}")
+    if launches == 0:
+        raise AssertionError(f"{label}: beam_step_lvq not launched")
+    return {"recall": recall, "qps": qps, "launches": launches}
+
+
+def phase_lvq_path(main_path: dict) -> dict:
+    """LVQ serving over the main path's graph (as bench.py's _lvq8_phase
+    serves it) and an LVQ-8 build; every count starts at 0 here."""
+    import scalablevectorsearch_tpu_torch as svt
+    from scalablevectorsearch_tpu_torch.index.vamana.index import (
+        VamanaIndex)
+    from scalablevectorsearch_tpu_torch.ops.kernels.beam_step import (
+        beam_step, beam_step_lvq)
+    index = main_path["index"].index
+    data, queries, gt = (main_path[key] for key in ("data", "queries", "gt"))
+    index.disable_packed_serving()          # drop the bf16 packed rows
+    torch.cuda.empty_cache()
+    beam_step.launches = beam_step_lvq.launches = 0
+
+    def over_graph(lvq):
+        idx = VamanaIndex(index.graph, lvq, index.entry_point,
+                          index.distance,
+                          query_batch_size=index.query_batch_size)
+        idx.enable_entry_sampler()
+        idx.pop_width = index.pop_width
+        return idx
+
+    def f32_recall(window):
+        index.search_window_size = window
+        return svt.k_recall_at_n(gt, index.search(queries, 10))
+
+    t0 = time.perf_counter()
+    lvq8 = svt.LVQDataset.compress(data, bits=8)
+    torch.cuda.synchronize()
+    compress_s = time.perf_counter() - t0
+    idx = over_graph(lvq8)
+    t0 = time.perf_counter()
+    idx.enable_packed_serving()
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    packed_mb = sum(t.numel() * t.element_size() for t in (
+        idx._packed.codes, idx._packed.scales, idx._packed.biases)) / 1e6
+    log(f"lvq path: LVQ-8 compress {compress_s:.2f} s, pack {pack_s:.2f} s "
+        f"({packed_mb:.1f} MB of packed codes and constants)")
+    window, _ = sweep(idx, queries, gt, "lvq path: LVQ-8 packed")
+    out = {"window": window, "f32_recall": f32_recall(window)}
+    idx.search_window_size = window
+    out["packed"] = timed_serving(idx, queries, gt, "LVQ-8 packed",
+                                  out["f32_recall"])
+    idx.disable_packed_serving()
+    out["unpacked"] = timed_serving(idx, queries, gt, "LVQ-8 unpacked",
+                                    out["f32_recall"])
+    del idx, lvq8
+    lvq88 = svt.LVQDataset.compress(data, bits=8, residual_bits=8)
+    idx = over_graph(lvq88)
+    idx.enable_packed_serving()
+    idx.search_window_size = window
+    out["lvq8x8"] = timed_serving(idx, queries, gt,
+                                  "LVQ8x8 packed + rerank",
+                                  out["f32_recall"])
+    del idx, lvq88
+    torch.cuda.empty_cache()
+
+    before = beam_step_lvq.launches
+    t0 = time.perf_counter()
+    built = svt.Vamana.build(main_path_params(),
+                             svt.LVQDataset.compress(data, bits=8), "l2",
+                             sampled_entries=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = beam_step_lvq.launches - before
+    log(f"lvq path: LVQ-8 build 100000x128 in {build_s:.2f} s, mean degree "
+        f"{built.index.graph.mean_degree():.3f}, beam_step_lvq launches "
+        f"{build_launches}")
+    if build_launches == 0:
+        raise AssertionError("LVQ-8 build: beam_step_lvq not launched")
+    built.enable_packed_serving()
+    out["build"] = {"seconds": build_s, "launches": build_launches}
+    out["build"]["window"], out["build"]["recall"] = sweep(
+        built, queries, gt, "lvq path: LVQ-8 build, packed serving")
+    out["launches"] = beam_step_lvq.launches
+    log(f"lvq path: launches beam_step_lvq {beam_step_lvq.launches}, "
+        f"beam_step {beam_step.launches}")
+    return out
 
 
 def phase_golden() -> None:
@@ -301,21 +591,40 @@ def phase_golden() -> None:
                              + "; ".join(bad))
 
 
+def kernel_entry(name: str, replaces: str, launches: int, kern: dict,
+                 shape: str, build_s: float) -> dict:
+    """One kernel's entry of the summary line: times and bound at the main
+    path's serving shape; every shape's numbers under ``ms_by_shape``."""
+    t = kern["timings"][shape]
+    return {"name": name, "route": "cuda",
+            "source": "scalablevectorsearch_tpu_torch/csrc/beam_step.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": kern["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            # no single PyTorch call scores, dedups, merges and pops
+            "library_ms": None, "build_s": build_s,
+            "ms_by_shape": kern["timings"]}
+
+
 def main() -> int:
     device = phase_device()
     build_s = phase_build()
     kern = phase_kernels()
+    kern_lvq = phase_kernels_lvq()
     main_path = phase_main_path()
+    main_launches = main_path["launches"]
+    lvq_path = phase_lvq_path(main_path)
+    del main_path                       # frees the 100k index
     phase_golden()
-    serving = kern["timings"]["serving_bf16"]
-    print(json.dumps({"kernels": [{
-        "name": "beam_step", "route": "cuda",
-        "source": "scalablevectorsearch_tpu_torch/csrc/beam_step.cu",
-        "replaces": "scalablevectorsearch_tpu/ops/pallas/beam_step.py:261",
-        "launches": main_path["launches"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": serving["ms"], "plain_ms": serving["plain_ms"],
-        "build_s": build_s, "ms_by_shape": kern["timings"]}]}))
+    print(json.dumps({"kernels": [
+        kernel_entry("beam_step",
+                     "scalablevectorsearch_tpu/ops/pallas/beam_step.py:261",
+                     main_launches, kern, "serving_bf16",
+                     build_s),
+        kernel_entry("beam_step_lvq",
+                     "scalablevectorsearch_tpu/ops/pallas/beam_step.py:327",
+                     lvq_path["launches"], kern_lvq, "serving", build_s)]}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -1,10 +1,11 @@
 """scalablevectorsearch_tpu_torch: the PyTorch/CUDA port of
 scalablevectorsearch_tpu.
 
-Static Vamana build and batched search over f32/bf16 datasets, flat
-exhaustive search for ground truth, and recall, in PyTorch on one NVIDIA
-H100; the per-iteration beam step is a CUDA kernel written for Hopper
-(``csrc/beam_step.cu``).  The JAX package stays the reference this port is
+Static Vamana build and batched search over f32/bf16 and LVQ-compressed
+datasets, flat exhaustive search for ground truth, and recall, in PyTorch
+on one NVIDIA H100; the per-iteration beam step is a CUDA kernel written for
+Hopper (``csrc/beam_step.cu``), with a second entry that decodes LVQ-8
+codes in registers.  The JAX package stays the reference this port is
 tested against.  Tensors are created on ``device="cuda"`` unless a caller
 passes another device; nothing moves to the CPU by itself.
 """
@@ -23,6 +24,7 @@ from .index.vamana.params import (SearchBufferConfig, VamanaBuildParameters,
                                   VamanaSearchParameters)
 from .ops.distance import DistanceType, as_distance
 from .orchestrators.vamana import Vamana
+from .quantization.lvq import LVQDataset
 
 L2 = DistanceType.L2
 MIP = DistanceType.MIP
@@ -35,5 +37,5 @@ __all__ = [
     "DistanceType", "as_distance", "L2", "MIP", "Cosine",
     "FlatIndex", "exhaustive_search",
     "VamanaIndex", "VamanaBuildParameters", "VamanaSearchParameters",
-    "SearchBufferConfig", "Vamana",
+    "SearchBufferConfig", "Vamana", "LVQDataset",
 ]

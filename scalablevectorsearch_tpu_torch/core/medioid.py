@@ -2,8 +2,9 @@
 
 PyTorch counterpart of ``scalablevectorsearch_tpu/core/medioid.py``: the
 component-wise mean of the dataset, then the id of the row nearest to it,
-both as tiled loops over the dataset (sums accumulate tile by tile in f32,
-as in the JAX package).
+both as tiled loops over the dataset protocol (``get_f32`` for the sum,
+``tile_keys`` for the arg-min), so compressed datasets decode tile by tile;
+sums accumulate tile by tile in f32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ def compute_medioid(dataset, tile: int = 16384) -> int:
     while dataset.capacity % tile != 0:
         tile //= 2
     num_tiles = dataset.capacity // tile
-    device = dataset.vectors.device
+    device = dataset.device
     total = torch.zeros(dataset.padded_dim, dtype=torch.float32,
                         device=device)
     for t in range(num_tiles):

@@ -1,23 +1,27 @@
 // One lockstep beam-search iteration for a batch of queries, on Hopper.
 //
-// Replaces scalablevectorsearch_tpu/ops/pallas/beam_step.py::beam_step (the
-// Pallas kernel the JAX package runs on every serving and build iteration).
-// The Python wrapper and the plain PyTorch version of the same function are
-// in scalablevectorsearch_tpu_torch/ops/kernels/beam_step.py.
+// Replaces two Pallas kernels of scalablevectorsearch_tpu/ops/pallas/
+// beam_step.py: beam_step (the kernel the JAX package runs on every serving
+// and build iteration over f32/bf16 rows) and beam_step_lvq (the same step
+// over LVQ-8 code rows decoded in the kernel).  The Python wrappers and the
+// plain PyTorch versions of both are in
+// scalablevectorsearch_tpu_torch/ops/kernels/beam_step.py.
 //
 // Per query row it scores K gathered candidate rows, masks ids repeated
 // within the iteration and ids already in the beam, sorts the candidates,
 // merges them into the sorted beam (truncated to C) and pops the first m
 // unvisited slots inside the window, setting their visited bit
-// (packed = id | visited << 30).
+// (packed = id | visited << 30).  One kernel template serves both entry
+// points; only the row loader differs (DenseRows / LvqRows below).
 //
 // What bounds it: bytes.  Reading the (B, K, d) gathered rows dominates:
-// 128 * 128 * 4 B = 64 KB per row per iteration at f32 (half that at bf16),
-// against a few hundred bytes of beam state.  The design reads every
-// gathered row exactly once, straight into registers (16-byte loads, the
-// whole warp on one row), keeps the query, the candidates and the beam in
-// shared memory, and writes nothing intermediate to device memory: the only
-// stores are the five outputs.
+// 128 * 128 * 4 B = 64 KB per row per iteration at f32 (half that at bf16,
+// a quarter as LVQ-8 codes), against a few hundred bytes of beam state.  The
+// design reads every gathered row exactly once, straight into registers
+// (16-byte loads), keeps the query, the LVQ mean, the candidates and the
+// beam in shared memory, and writes nothing intermediate to device memory:
+// the only stores are the five outputs.  LVQ rows are decoded in registers
+// (mean + bias + scale * code), so the f32 rows never exist in memory.
 //
 // Layout: one CTA of 256 threads per query row.  Warps score candidates
 // with a stride, four rows in flight per warp.  The dedup, the sort and the
@@ -88,60 +92,19 @@ __device__ __forceinline__ int count_below(const float* a, int n, float v,
   return lo;
 }
 
-template <typename VecT, typename QT>
-__global__ void __launch_bounds__(kThreads)
-beam_step_kernel(const float* __restrict__ beam_keys,
-                 const int* __restrict__ beam_packed,
-                 const VecT* __restrict__ vecs,
-                 const int* __restrict__ cand_ids,
-                 const QT* __restrict__ queries,
-                 float* __restrict__ out_keys, int* __restrict__ out_packed,
-                 int* __restrict__ popped, float* __restrict__ pool_keys,
-                 int* __restrict__ pool_ids, int C, int K, int d, int metric,
-                 int window, int m, int vec4) {
-  extern __shared__ __align__(16) float smem[];
-  const int d_al = (d + 3) & ~3;
-  float* q_s = smem;                                  // d_al  query (f32)
-  float* ck = q_s + d_al;                             // K     candidate keys
-  int* cid = reinterpret_cast<int*>(ck + K);          // K     candidate ids
-  int* sortid = cid + K;                              // K     id sort key
-  float* sk = reinterpret_cast<float*>(sortid + K);   // K     keys, sorted
-  int* sid = reinterpret_cast<int*>(sk + K);          // K     ids, sorted
-  float* bk = reinterpret_cast<float*>(sid + K);      // C     beam keys
-  int* bp = reinterpret_cast<int*>(bk + C);           // C     beam packed
-  float* nk = reinterpret_cast<float*>(bp + C);       // C     merged keys
-  int* np_ = reinterpret_cast<int*>(nk + C);          // C     merged packed
-  float* red = reinterpret_cast<float*>(np_ + C);     // kWarps
+// Dense f32/bf16 rows: the whole warp on one row, four rows in flight.
+template <typename VecT>
+struct DenseRows {
+  const VecT* vecs;  // (B, K, d)
+  int vec4;          // d % 4 == 0 and 4-element-aligned rows
 
-  const int row = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float inf = __int_as_float(0x7f800000);
-
-  // ---- 0. stage the query, the beam and the candidate ids --------------
-  const QT* q = queries + static_cast<size_t>(row) * d;
-  float part = 0.f;
-  for (int t = tid; t < d_al; t += kThreads) {
-    float v = t < d ? to_f32(q[t]) : 0.f;
-    q_s[t] = v;
-    part += v * v;
-  }
-  for (int i = tid; i < C; i += kThreads) {
-    bk[i] = beam_keys[static_cast<size_t>(row) * C + i];
-    bp[i] = beam_packed[static_cast<size_t>(row) * C + i];
-  }
-  for (int j = tid; j < K; j += kThreads)
-    cid[j] = cand_ids[static_cast<size_t>(row) * K + j];
-  part = warp_sum(part);
-  if (lane == 0) red[warp] = part;
-  __syncthreads();
-  float qn = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) qn += red[w];
-
-  // ---- 1. score: one warp per candidate row, kUnroll rows in flight ----
-  const VecT* rows = vecs + static_cast<size_t>(row) * K * d;
-  for (int j0 = warp * kUnroll; j0 < K; j0 += kWarps * kUnroll) {
-    float dot[kUnroll], x2[kUnroll];
+  // dot[u], x2[u] of rows j0 + u (u < kUnroll) against the staged query,
+  // complete in every lane.
+  __device__ __forceinline__ void score(int row, int j0, int K, int d,
+                                        const float* q_s, const float*, int lane,
+                                        float (&dot)[kUnroll],
+                                        float (&x2)[kUnroll]) const {
+    const VecT* rows = vecs + static_cast<size_t>(row) * K * d;
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) dot[u] = x2[u] = 0.f;
     if (vec4) {
@@ -171,9 +134,156 @@ beam_step_kernel(const float* __restrict__ beam_keys,
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
+      dot[u] = warp_sum(dot[u]);
+      x2[u] = warp_sum(x2[u]);
+    }
+  }
+};
+
+// LVQ-8 code rows: v = (mean[t] + bias) + scale * code, decoded in
+// registers with the plain version's rounding (no fused multiply-add); the
+// zero-padded lanes decode to bias, so the row's summed x2 then loses
+// (n_dead * bias) * bias, rounded as the plain version rounds it.  A row of d int8 codes is d / 16 16-byte chunks; G lanes (a power
+// of two, at most 32 and at most the chunk count) share one row, so a warp
+// scores 32 / G rows per pass (4 rows at d = 128, one chunk per lane).
+struct LvqRows {
+  const int8_t* codes;   // (B, K, d)
+  const float* scales;   // (B, K)
+  const float* biases;   // (B, K)
+  int n_dead;
+  int vec16;             // d % 16 == 0 and 16-byte-aligned rows
+
+  __device__ __forceinline__ static void decode_add(float code, float mean,
+                                                    float q, float sc, float bi,
+                                                    float& dot, float& x2) {
+    const float v = __fadd_rn(__fadd_rn(mean, bi), __fmul_rn(sc, code));
+    dot += v * q;
+    x2 += v * v;
+  }
+
+  __device__ __forceinline__ void score(int row, int j0, int K, int d,
+                                        const float* q_s, const float* mean_s,
+                                        int lane, float (&dot)[kUnroll],
+                                        float (&x2)[kUnroll]) const {
+    const int width = vec16 ? 16 : 1;    // codes per load
+    const int n_chunks = d / width;
+    int G = 32;
+    while (G > n_chunks) G >>= 1;
+    const int per_pass = 32 / G;          // rows scored per pass
+    const int sub = lane / G, c0 = lane & (G - 1);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) dot[u] = x2[u] = 0.f;
+    for (int pass = 0; pass * per_pass < kUnroll; ++pass) {
+      const int u_me = pass * per_pass + sub;
+      const int j = j0 + u_me;
+      float pd = 0.f, px = 0.f, dead = 0.f;
+      if (u_me < kUnroll && j < K) {
+        const size_t off = static_cast<size_t>(row) * K + j;
+        const float sc = scales[off], bi = biases[off];
+        dead = __fmul_rn(__fmul_rn(static_cast<float>(n_dead), bi), bi);
+        const int8_t* crow = codes + off * d;
+        for (int c = c0; c < n_chunks; c += G) {
+          if (vec16) {
+            const int t = c * 16;
+            const int4 raw = *reinterpret_cast<const int4*>(crow + t);
+            const int words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+            for (int w = 0; w < 4; ++w) {
+              const float4 qq = *reinterpret_cast<const float4*>(q_s + t + 4 * w);
+              const float4 mm = *reinterpret_cast<const float4*>(mean_s + t + 4 * w);
+              const int word = words[w];
+              decode_add(static_cast<float>(static_cast<int8_t>(word & 0xff)),
+                         mm.x, qq.x, sc, bi, pd, px);
+              decode_add(static_cast<float>(static_cast<int8_t>((word >> 8) & 0xff)),
+                         mm.y, qq.y, sc, bi, pd, px);
+              decode_add(static_cast<float>(static_cast<int8_t>((word >> 16) & 0xff)),
+                         mm.z, qq.z, sc, bi, pd, px);
+              decode_add(static_cast<float>(static_cast<int8_t>((word >> 24) & 0xff)),
+                         mm.w, qq.w, sc, bi, pd, px);
+            }
+          } else {
+            decode_add(static_cast<float>(crow[c]), mean_s[c], q_s[c], sc, bi,
+                       pd, px);
+          }
+        }
+      }
+      for (int o = G >> 1; o > 0; o >>= 1) {
+        pd += __shfl_xor_sync(0xffffffffu, pd, o);
+        px += __shfl_xor_sync(0xffffffffu, px, o);
+      }
+      px = __fsub_rn(px, dead);   // after the sum, as the plain version
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (u / per_pass == pass) {   // warp-uniform
+          dot[u] = __shfl_sync(0xffffffffu, pd, (u % per_pass) * G);
+          x2[u] = __shfl_sync(0xffffffffu, px, (u % per_pass) * G);
+        }
+      }
+    }
+  }
+};
+
+template <class Rows, typename QT>
+__global__ void __launch_bounds__(kThreads)
+beam_step_kernel(Rows rows_in, const float* __restrict__ mean,
+                 const float* __restrict__ beam_keys,
+                 const int* __restrict__ beam_packed,
+                 const int* __restrict__ cand_ids,
+                 const QT* __restrict__ queries,
+                 float* __restrict__ out_keys, int* __restrict__ out_packed,
+                 int* __restrict__ popped, float* __restrict__ pool_keys,
+                 int* __restrict__ pool_ids, int C, int K, int d, int metric,
+                 int window, int m) {
+  extern __shared__ __align__(16) float smem[];
+  const int d_al = (d + 3) & ~3;
+  float* q_s = smem;                                  // d_al  query (f32)
+  float* mean_s = q_s + d_al;                         // d_al  mean (LVQ only)
+  float* ck = mean_s + (mean ? d_al : 0);             // K     candidate keys
+  int* cid = reinterpret_cast<int*>(ck + K);          // K     candidate ids
+  int* sortid = cid + K;                              // K     id sort key
+  float* sk = reinterpret_cast<float*>(sortid + K);   // K     keys, sorted
+  int* sid = reinterpret_cast<int*>(sk + K);          // K     ids, sorted
+  float* bk = reinterpret_cast<float*>(sid + K);      // C     beam keys
+  int* bp = reinterpret_cast<int*>(bk + C);           // C     beam packed
+  float* nk = reinterpret_cast<float*>(bp + C);       // C     merged keys
+  int* np_ = reinterpret_cast<int*>(nk + C);          // C     merged packed
+  float* red = reinterpret_cast<float*>(np_ + C);     // kWarps
+
+  const int row = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float inf = __int_as_float(0x7f800000);
+
+  // ---- 0. stage the query, the mean, the beam and the candidate ids -----
+  const QT* q = queries + static_cast<size_t>(row) * d;
+  float part = 0.f;
+  for (int t = tid; t < d_al; t += kThreads) {
+    float v = t < d ? to_f32(q[t]) : 0.f;
+    q_s[t] = v;
+    part += v * v;
+    if (mean) mean_s[t] = t < d ? mean[t] : 0.f;
+  }
+  for (int i = tid; i < C; i += kThreads) {
+    bk[i] = beam_keys[static_cast<size_t>(row) * C + i];
+    bp[i] = beam_packed[static_cast<size_t>(row) * C + i];
+  }
+  for (int j = tid; j < K; j += kThreads)
+    cid[j] = cand_ids[static_cast<size_t>(row) * K + j];
+  part = warp_sum(part);
+  if (lane == 0) red[warp] = part;
+  __syncthreads();
+  float qn = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) qn += red[w];
+
+  // ---- 1. score: kUnroll rows per warp step ------------------------------
+  for (int j0 = warp * kUnroll; j0 < K; j0 += kWarps * kUnroll) {
+    float dot[kUnroll], x2[kUnroll];
+    rows_in.score(row, j0, K, d, q_s, mean_s, lane, dot, x2);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
       const int j = j0 + u;
-      const float s = warp_sum(dot[u]);
-      const float n2 = warp_sum(x2[u]);
+      const float s = dot[u];
+      const float n2 = x2[u];
       if (lane == 0 && j < K) {
         float key;
         if (metric == kMip) {
@@ -273,16 +383,17 @@ beam_step_kernel(const float* __restrict__ beam_keys,
   }
 }
 
-template <typename VecT, typename QT>
-cudaError_t launch(const void* beam_keys, const void* beam_packed,
-                   const void* vecs, const void* cand_ids, const void* queries,
-                   void* out_keys, void* out_packed, void* popped,
-                   void* pool_keys, void* pool_ids, int B, int C, int K, int d,
-                   int metric, int window, int m, int vec4,
+template <class Rows, typename QT>
+cudaError_t launch(Rows rows, const float* mean, const void* beam_keys,
+                   const void* beam_packed, const void* cand_ids,
+                   const void* queries, void* out_keys, void* out_packed,
+                   void* popped, void* pool_keys, void* pool_ids, int B, int C,
+                   int K, int d, int metric, int window, int m,
                    cudaStream_t stream) {
   const int d_al = (d + 3) & ~3;
-  const size_t smem = sizeof(float) * (d_al + 5 * K + 4 * C + kWarps);
-  auto kernel = beam_step_kernel<VecT, QT>;
+  const size_t smem =
+      sizeof(float) * ((mean ? 2 : 1) * d_al + 5 * K + 4 * C + kWarps);
+  auto kernel = beam_step_kernel<Rows, QT>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -290,19 +401,24 @@ cudaError_t launch(const void* beam_keys, const void* beam_packed,
     if (err != cudaSuccess) return err;
   }
   kernel<<<B, kThreads, smem, stream>>>(
-      static_cast<const float*>(beam_keys), static_cast<const int*>(beam_packed),
-      static_cast<const VecT*>(vecs), static_cast<const int*>(cand_ids),
+      rows, mean, static_cast<const float*>(beam_keys),
+      static_cast<const int*>(beam_packed), static_cast<const int*>(cand_ids),
       static_cast<const QT*>(queries), static_cast<float*>(out_keys),
       static_cast<int*>(out_packed), static_cast<int*>(popped),
       static_cast<float*>(pool_keys), static_cast<int*>(pool_ids), C, K, d,
-      metric, window, m, vec4);
+      metric, window, m);
   return cudaGetLastError();
+}
+
+template <typename VecT>
+DenseRows<VecT> dense_rows(const void* vecs, int vec4) {
+  return DenseRows<VecT>{static_cast<const VecT*>(vecs), vec4};
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  Returns the cudaError_t of the
-// launch: 0 on success.
+// Plain C entry points (loaded with ctypes).  Each returns the cudaError_t
+// of its launch: 0 on success.
 extern "C" int svt_beam_step(const void* beam_keys, const void* beam_packed,
                              const void* vecs, int vecs_bf16,
                              const void* cand_ids, const void* queries,
@@ -313,9 +429,10 @@ extern "C" int svt_beam_step(const void* beam_keys, const void* beam_packed,
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SVT_LAUNCH(V, Q)                                                      \
-  launch<V, Q>(beam_keys, beam_packed, vecs, cand_ids, queries, out_keys,     \
-               out_packed, popped, pool_keys, pool_ids, B, C, K, d, metric,   \
-               window, m, vec4, s)
+  launch<DenseRows<V>, Q>(dense_rows<V>(vecs, vec4), nullptr, beam_keys,      \
+                          beam_packed, cand_ids, queries, out_keys,           \
+                          out_packed, popped, pool_keys, pool_ids, B, C, K, d, \
+                          metric, window, m, s)
   cudaError_t err;
   if (vecs_bf16) {
     err = queries_bf16 ? SVT_LAUNCH(__nv_bfloat16, __nv_bfloat16)
@@ -326,4 +443,24 @@ extern "C" int svt_beam_step(const void* beam_keys, const void* beam_packed,
   }
 #undef SVT_LAUNCH
   return static_cast<int>(err);
+}
+
+// LVQ-8: codes (B, K, d) int8, scales/biases (B, K) f32, mean (d) f32,
+// queries (B, d) f32.
+extern "C" int svt_beam_step_lvq(const void* beam_keys, const void* beam_packed,
+                                 const void* codes, const void* scales,
+                                 const void* biases, const void* mean,
+                                 const void* cand_ids, const void* queries,
+                                 void* out_keys, void* out_packed, void* popped,
+                                 void* pool_keys, void* pool_ids, int B, int C,
+                                 int K, int d, int metric, int window, int m,
+                                 int n_dead, int vec16, void* stream) {
+  if (B == 0) return 0;
+  const LvqRows rows{static_cast<const int8_t*>(codes),
+                     static_cast<const float*>(scales),
+                     static_cast<const float*>(biases), n_dead, vec16};
+  return static_cast<int>(launch<LvqRows, float>(
+      rows, static_cast<const float*>(mean), beam_keys, beam_packed, cand_ids,
+      queries, out_keys, out_packed, popped, pool_keys, pool_ids, B, C, K, d,
+      metric, window, m, static_cast<cudaStream_t>(stream)));
 }

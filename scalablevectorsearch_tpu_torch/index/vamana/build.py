@@ -13,6 +13,10 @@ with the same round structure (the reference's ``VamanaBuilder``,
      {adjacency ∪ overflow backedges}.
 
 Two passes over all batches, reverse-edge alphas 1.0 then ``alpha``.  The
+dataset is any dataset-protocol object (``VectorDataset``, ``LVQDataset``,
+``LVQFullView``): rows go through ``get`` / ``get_f32`` and norms through
+``norms_of``, so compressed data is searched and pruned on its decoded
+rows.  The
 JAX package's ``associative_scan(jnp.maximum)`` is ``torch.cummax`` here,
 and its dropped (``mode="drop"``) scatters write into sink slots that are
 sliced off.  Sorts are stable, so the build is deterministic for a fixed
@@ -27,7 +31,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ...core.data import VectorDataset
 from ...core.graph import NeighborGraph
 from ...core.medioid import compute_medioid
 from ...lib import logging as svs_logging
@@ -42,7 +45,7 @@ _INT_MAX = 2 ** 31 - 1
 MAX_BACKEDGES = 16   # per-destination reverse-edge overflow cap per round
 
 
-def _score_against(data: VectorDataset, distance, queries, q_norms, ids):
+def _score_against(data, distance, queries, q_norms, ids):
     """Keys from each query row to its gathered candidate ids (+inf invalid)."""
     clamped = ids.clamp_min(0)
     keys = dist_ops.gathered_keys(distance, queries, data.get(clamped),
@@ -51,7 +54,7 @@ def _score_against(data: VectorDataset, distance, queries, q_norms, ids):
     return torch.where((ids >= 0) & (ids < data.n), keys, float("inf"))
 
 
-def _prune_pools(data: VectorDataset, pool_ids, pool_keys, self_ids,
+def _prune_pools(data, pool_ids, pool_keys, self_ids,
                  alpha: float, max_result: int, distance, chunk: int):
     """Chunked batched RobustPrune: gathers pool vectors per chunk to bound
     the (chunk, P, P) pairwise matrix in memory."""
@@ -76,7 +79,7 @@ def _pad_cols(rows: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def build_round(graph: NeighborGraph,
-                data: VectorDataset,
+                data,
                 batch_ids: torch.Tensor,
                 batch_valid: torch.Tensor,
                 entry_ids: torch.Tensor,
@@ -197,7 +200,7 @@ def build_round(graph: NeighborGraph,
 
 
 def _reprune_body(graph: NeighborGraph,
-                  data: VectorDataset,
+                  data,
                   node_ids: torch.Tensor,
                   node_valid: torch.Tensor,
                   backedges: torch.Tensor,
@@ -233,7 +236,7 @@ def default_batch_size(n: int) -> int:
     return max(8, min(4096, -(-n // 40)))
 
 
-def build_graph(data: VectorDataset,
+def build_graph(data,
                 params: VamanaBuildParameters,
                 distance,
                 *,

@@ -6,10 +6,12 @@ search parameters; provides build, batch search (``search`` /
 ``search_async``) and vector reconstruction.  Queries are split into
 equal-size lockstep batches; each batch is uploaded (f16 by default),
 dequantized on the device, given sampled entry points when the sampler is
-on, searched, and its keys converted to distances.
+on, searched, reranked with both levels for two-level LVQ data, and its
+keys converted to distances.  The dataset is a ``VectorDataset`` or an
+``LVQDataset`` (one- or two-level; packed serving packs its codes).
 
-Not part of this package yet: save/assemble and the stream archive, the
-host-side exact rerank, and two-level (residual) datasets.
+Not part of this package yet: save/assemble and the stream archive, and
+the host-side exact rerank.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ...core.query_result import QueryResult
 from ...lib import datatypes as dt
 from ...lib import timing
 from ...ops import distance as dist_ops
+from ..ivf.index import rerank_kernel
 from . import build as build_mod
 from . import search as search_mod
 from .params import VamanaBuildParameters, VamanaSearchParameters
@@ -142,13 +145,14 @@ def dequantize_queries(q: torch.Tensor, q_scale: Optional[torch.Tensor]
     return q if q_scale is None else q * q_scale
 
 
-def _search_batch(graph, data, packed, sampler, q, q_scale, entry_ids, *,
-                  k: int, window: int, capacity: int, max_iters: int,
-                  distance, tail_frac: int, visited_size: int,
-                  n_entries: int = 1,
+def _search_batch(graph, data, packed, rerank_view, sampler, q, q_scale,
+                  entry_ids, *, k: int, window: int, capacity: int,
+                  max_iters: int, distance, tail_frac: int,
+                  visited_size: int, two_level: bool, n_entries: int = 1,
                   pop_width: int = search_mod.SERVING_POP_WIDTH):
     """One serving dispatch: dequantize, (optional) per-query entry
-    selection, beam search, key->distance conversion."""
+    selection, beam search, (optional) two-level rerank, key->distance
+    conversion."""
     q = dequantize_queries(q, q_scale)
     if sampler is not None:
         entry_ids = sampler.select(distance, q, n_entries=n_entries)
@@ -157,8 +161,13 @@ def _search_batch(graph, data, packed, sampler, q, q_scale, entry_ids, *,
         window=window, capacity=capacity, max_iters=max_iters,
         distance=distance, packed=packed, tail_frac=tail_frac,
         visited_size=visited_size, pop_width=pop_width)
-    return out.ids[:, :k], dist_ops.value_from_key(distance,
-                                                   out.keys[:, :k])
+    ids, keys = out.ids, out.keys
+    if two_level:
+        # traversal keys come from the primary level; rerank the retained
+        # beam with the residual-corrected reconstruction
+        keys, ids = rerank_kernel(rerank_view, q, None, ids, k=k,
+                                  distance=distance)
+    return ids[:, :k], dist_ops.value_from_key(distance, keys[:, :k])
 
 
 class VamanaIndex:
@@ -171,7 +180,7 @@ class VamanaIndex:
 
     def __init__(self,
                  graph: NeighborGraph,
-                 data: VectorDataset,
+                 data,
                  entry_point: int,
                  distance,
                  build_parameters: Optional[VamanaBuildParameters] = None,
@@ -213,13 +222,18 @@ class VamanaIndex:
               logger=None,
               device="cuda",
               **kwargs) -> "VamanaIndex":
-        """Build from an (n, d) array or a :class:`VectorDataset`."""
-        if not isinstance(data, VectorDataset):
+        """Build from an (n, d) array or a dataset-protocol object
+        (``VectorDataset``, ``LVQDataset``; a dataset keeps its own
+        device).  Two-level LVQ builds over its full reconstruction
+        (``full_view()``); serving traverses the primary level."""
+        if not hasattr(data, "norms_sq"):   # raw array
             data = VectorDataset.from_array(data, dtype=dtype, device=device)
         distance = dist_ops.as_distance(distance)
         parameters = parameters.resolved(distance)
+        build_data = data.full_view() \
+            if getattr(data, "residual_bits", 0) else data
         graph, entry = build_mod.build_graph(
-            data, parameters, distance, batch_size=batch_size,
+            build_data, parameters, distance, batch_size=batch_size,
             pop_width=pop_width, tail_frac=build_tail_frac,
             first_pass_window=first_pass_window,
             sampled_entries=sampled_entries,
@@ -264,8 +278,18 @@ class VamanaIndex:
         """Materialize inline neighbor vectors
         (``packed.pack_neighborhoods``): R-fold fewer row gathers per search
         iteration at ``capacity * R * d * itemsize`` bytes of device
-        memory."""
-        from .packed import pack_neighborhoods
+        memory.  LVQ datasets pack their neighbors' codes instead
+        (``packed.pack_neighborhoods_lvq``, ``dtype`` unused): exact
+        decoding, so results equal unpacked LVQ serving."""
+        from ...quantization.lvq import LVQDataset
+        from .packed import pack_neighborhoods, pack_neighborhoods_lvq
+        if isinstance(self.data, LVQDataset):
+            self._packed = pack_neighborhoods_lvq(self.graph, self.data,
+                                                  chunk=chunk)
+            return
+        if not isinstance(self.data, VectorDataset):
+            raise ValueError("packed serving requires an uncompressed "
+                             "VectorDataset or an LVQDataset")
         self._packed = pack_neighborhoods(self.graph, self.data, dtype,
                                           chunk=chunk)
 
@@ -314,6 +338,13 @@ class VamanaIndex:
         if cfg.capacity_defaulted and cfg.search_buffer_capacity < k_eff:
             window = k_eff
         capacity = max(cfg.search_buffer_capacity, window, k_eff)
+        # two-level data traverses the primary level and reranks the
+        # retained beam with both levels; defaulted configs retain 2x the
+        # window so the rerank has candidates (explicit splits are honored)
+        two_level = bool(getattr(self.data, "residual_bits", 0))
+        if two_level and cfg.capacity_defaulted:
+            capacity = max(capacity, 2 * window)
+        rerank_view = self.data.full_view() if two_level else None
         max_iters = params.resolved_max_iters()
         # exact visited filter: a ring of pop_width * max_iters ids holds
         # every expansion the bounded loop can make
@@ -350,18 +381,20 @@ class VamanaIndex:
             scale_i = None if q_scale_host is None else \
                 q_scale_host[rows].to(device, non_blocking=True)
             ids_k, vals_k = _search_batch(
-                self.graph, self.data, self._packed, self._entry_sampler,
-                q_i, scale_i, entry_ids,
+                self.graph, self.data, self._packed, rerank_view,
+                self._entry_sampler, q_i, scale_i, entry_ids,
                 k=k_eff, window=window, capacity=capacity,
                 max_iters=max_iters, distance=self.distance,
                 tail_frac=self.tail_frac, visited_size=visited_size,
-                n_entries=self._entry_n, pop_width=self.pop_width)
+                two_level=two_level, n_entries=self._entry_n,
+                pop_width=self.pop_width)
             pending.add(i * plan.rows, ids_k, vals_k)
         return pending.dispatched()
 
     # -- reconstruction -----------------------------------------------------------
     def reconstruct_at(self, ids) -> np.ndarray:
-        """Return the vectors for the given internal ids (reference
+        """Return the (decoded, primary-level for LVQ) vectors for the given
+        internal ids through the dataset's ``get_f32`` (reference
         index.h:630-671)."""
         ids = np.asarray(ids, dtype=np.int64)
         if np.any((ids < 0) | (ids >= self.size)):

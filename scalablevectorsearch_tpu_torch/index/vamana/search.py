@@ -5,13 +5,28 @@ PyTorch counterpart of the kernel branch of
 (``search.py:253-375``).  A whole batch of queries advances in lockstep: the
 search buffer is a dense (B, C) beam sorted ascending by key, and every
 iteration gathers the popped nodes' neighbors, fetches their rows (from the
-dataset, or from packed neighborhoods) and runs :func:`beam_step`, which
-scores, dedups, merges and pops in one kernel on the GPU.
+dataset, or from packed neighborhoods) and runs one beam-step kernel, which
+scores, dedups, merges and pops on the GPU.
+
+Each kind of row has one route:
+- f32 / bf16 ``VectorDataset`` rows, or bf16 / f32 packed super-rows:
+  :func:`beam_step`;
+- LVQ-8 codes, gathered per neighbour (``LVQDataset`` with 8 bits) or as
+  packed code super-rows (``PackedLVQNeighborhoods`` with 8 bits):
+  :func:`beam_step_lvq`, which decodes the codes in registers.  The JAX
+  package decodes packed LVQ-8 super-rows to f32 and runs ``beam_step``
+  instead (``search.py:322-326``); the function computed is the same, but on
+  the GPU decoding inside the kernel avoids writing an f32 block four times
+  the code bytes and reading it back.  Packed and unpacked LVQ-8 thus feed
+  the same codes to the same kernel and give identical results;
+- LVQ-4 rows, packed or not, and the two-level ``LVQFullView``: decoded to
+  f32 (``affine_decode``), then :func:`beam_step`.  For unpacked LVQ-4 the
+  JAX package takes its XLA branch; the function is the same.
 
 The JAX ``while_loop`` is a Python loop here: its condition (some query
 still popped a node, within ``max_iters``) is read on the host once per
-iteration.  The XLA branch of the JAX function (sharded or quantized data,
-capacities above 1024) is not part of this package yet; such calls raise.
+iteration.  The XLA branch of the JAX function (sharded data, capacities
+above 1024) is not part of this package yet; such calls raise.
 """
 
 from __future__ import annotations
@@ -25,7 +40,10 @@ from ...core.data import VectorDataset
 from ...core.graph import NeighborGraph
 from ...ops import distance as dist_ops
 from ...ops import topk as topk_ops
-from ...ops.kernels.beam_step import ID_MASK, MAX_WIDTH, VIS_BIT, beam_step
+from ...ops.kernels.beam_step import (ID_MASK, MAX_WIDTH, VIS_BIT, beam_step,
+                                      beam_step_lvq)
+from ...quantization.lvq import LVQDataset, LVQFullView
+from .packed import PackedLVQNeighborhoods
 
 # Default multi-pop width for serving searches.
 SERVING_POP_WIDTH = 4
@@ -69,7 +87,7 @@ def _compact_tail_phase(state, queries, b2, run, active_of):
 
 
 def greedy_search(graph: NeighborGraph,
-                  data: VectorDataset,
+                  data,
                   queries: torch.Tensor,
                   entry_ids: torch.Tensor,
                   *,
@@ -85,6 +103,8 @@ def greedy_search(graph: NeighborGraph,
     """Run lockstep greedy search for a batch of queries.
 
     Args:
+      data: a ``VectorDataset`` (f32 / bf16), an ``LVQDataset`` or an
+        ``LVQFullView``.
       queries: (B, d_pad) tensor on the dataset's device (f32 or bf16
         scored as given; other dtypes are cast to f32).
       entry_ids: (E,) or (B, E) int32 entry points seeded into the beam.
@@ -94,8 +114,9 @@ def greedy_search(graph: NeighborGraph,
         candidates (build mode).
       pop_width: beam entries expanded per lockstep iteration.
       packed: optional (capacity, R, d) packed neighborhoods
-        (``packed.pack_neighborhoods``); with a lossy packed dtype the
-        final beam is re-scored against the exact rows.
+        (``packed.pack_neighborhoods``), or ``PackedLVQNeighborhoods`` for
+        LVQ data; with a lossy packed dtype the final beam is re-scored
+        against the exact rows (LVQ decoding is exact: no re-score).
       tail_frac: F > 1 finishes the last B/F unconverged queries on a
         compacted slice.
       visited_size: > 0 keeps a per-query ring of the last popped ids and
@@ -115,9 +136,13 @@ def greedy_search(graph: NeighborGraph,
         raise ValueError(f"capacity {capacity} > {MAX_WIDTH}: the beam-step "
                          "kernel takes at most 1024 slots, and the JAX "
                          "package's XLA search branch is not ported")
-    if data.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"dataset dtype {data.dtype}: only float32 and "
-                         "bfloat16 datasets are searchable here")
+    if not (isinstance(data, (LVQDataset, LVQFullView))
+            or (isinstance(data, VectorDataset)
+                and data.dtype in (torch.float32, torch.bfloat16))):
+        raise ValueError(f"dataset {type(data).__name__} "
+                         f"({getattr(data, 'dtype', None)}): searchable here "
+                         "are float32 / bfloat16 VectorDatasets, "
+                         "LVQDatasets and LVQFullViews")
     if data.n > ID_MASK:
         raise ValueError(f"{data.n} rows: ids must stay below 2^30")
     device = queries.device
@@ -162,9 +187,19 @@ def greedy_search(graph: NeighborGraph,
 
     metric = _METRIC_CODES[distance]
     n_data = data.n
-    if queries.dtype not in (torch.float32, torch.bfloat16):
+    packed_lvq = isinstance(packed, PackedLVQNeighborhoods)
+    # LVQ-8 codes go to beam_step_lvq, packed or not; every other
+    # quantized row is decoded to f32 before beam_step
+    if packed_lvq:
+        lvq8 = packed.bits == 8
+    else:
+        lvq8 = isinstance(data, LVQDataset) and data.bits == 8
+    if lvq8 or queries.dtype not in (torch.float32, torch.bfloat16):
         queries = queries.float()
     queries = queries.contiguous()
+    if lvq8:
+        lvq_mean = data.mean if packed is None else packed.mean
+        n_dead = data.padded_dim - data.dim
     # initial pop: the beam is sorted and unvisited — take the first m
     # finite in-window slots and mark them visited
     iota_c = torch.arange(c, device=device)
@@ -191,15 +226,30 @@ def greedy_search(graph: NeighborGraph,
             ring[:, col:col + m] = torch.where(has, popped, -1)
             seen = (nbrs[:, :, None] == ring[:, None, :]).any(-1)
             nbrs = torch.where(seen, -1, nbrs)
-        if packed is not None:
-            # m super-row gathers per query instead of m * r row gathers;
-            # rows of masked ids are garbage, masked by id in the kernel
-            vecs = packed[popped_flat.clamp_max(packed.shape[0] - 1)]
-            vecs = vecs.reshape(rows, m * r, packed.shape[2])
+        # packed: m super-row gathers per query instead of m * r row
+        # gathers; rows of masked ids are garbage, masked by id in the
+        # kernel
+        if lvq8:
+            if packed_lvq:
+                codes, sc, bi = packed.gather(popped_flat, rows)
+            else:
+                cl = nbrs.clamp_min(0)
+                codes, sc, bi = data.codes[cl], data.scales[cl], \
+                    data.biases[cl]
+            bk, bp, popped, cand_keys, cand_ids = beam_step_lvq(
+                bk, bp, codes, sc, bi, lvq_mean, nbrs, q_rows,
+                metric=metric, window=window, m=m, n_dead=n_dead)
         else:
-            vecs = data.get(nbrs.clamp_min(0))
-        bk, bp, popped, cand_keys, cand_ids = beam_step(
-            bk, bp, vecs, nbrs, q_rows, metric=metric, window=window, m=m)
+            if packed_lvq:
+                vecs = packed.decode(popped_flat, rows)
+            elif packed is not None:
+                vecs = packed[popped_flat.clamp_max(packed.shape[0] - 1)]
+                vecs = vecs.reshape(rows, m * r, packed.shape[2])
+            else:
+                vecs = data.get(nbrs.clamp_min(0))
+            bk, bp, popped, cand_keys, cand_ids = beam_step(
+                bk, bp, vecs, nbrs, q_rows, metric=metric, window=window,
+                m=m)
         if track:
             # mask candidates already pooled: hub nodes are re-scored in
             # every expansion that reaches them, and their copies would

@@ -5,7 +5,10 @@ The state is plain numpy: the dataset rows ``np.asarray(idx.data.vectors)
 ``idx.entry_point`` and, for a sampled-entries index,
 ``idx._entry_sampler.ids``.  :func:`vamana_from_arrays` turns it into a
 :class:`VamanaIndex` that computes the same search, so the two packages can
-be run on one graph.
+be run on one graph.  An LVQ dataset carries across through
+:func:`lvq_from_arrays` (its ``codes``, ``scales``, ``biases``, ``mean``,
+``n``, ``dim``, ``bits`` and, for two levels, ``res_codes`` /
+``res_scales``) and stands in place of the rows.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from .core.data import VectorDataset
 from .core.graph import NeighborGraph
 from .index.vamana.entry import build_sampler
 from .index.vamana.index import VamanaIndex
+from .quantization.lvq import LVQDataset, _unpack4
 
 
 def dataset_from_array(vectors, *, dtype=None, device="cuda"
@@ -41,11 +45,41 @@ def graph_from_arrays(adjacency, degrees, n: int, *, device="cuda"
                          n=n, max_degree=adjacency.shape[1])
 
 
+def lvq_from_arrays(codes, scales, biases, mean, *, n: int, dim: int,
+                    bits: int, residual_bits: int = 0, res_codes=None,
+                    res_scales=None, device="cuda") -> LVQDataset:
+    """A JAX ``LVQDataset``'s numpy state -> the port's ``LVQDataset``.
+
+    ``codes`` (capacity, w1) and ``res_codes`` are the stored rows (padded,
+    nibble-packed at 4 bits); ``mean`` is (d_pad,) or (dim,).  The codes,
+    scales, biases and mean are taken as given; the reconstruction norms
+    are recomputed on the host in float64 the way ``compress`` computes
+    them, which reproduces the JAX dataset's norms bit for bit.
+    """
+    def unpacked(rows, b):
+        rows = np.array(rows, dtype=np.int8)[:n]      # writable copy
+        if b == 4:
+            rows = _unpack4(torch.from_numpy(rows)).numpy()
+        return rows[:, :dim]
+
+    return LVQDataset.from_codes(
+        unpacked(codes, bits), np.asarray(scales)[:n], np.asarray(biases)[:n],
+        np.asarray(mean)[:dim], bits=bits, residual_bits=residual_bits,
+        res_codes=unpacked(res_codes, residual_bits) if residual_bits
+        else None,
+        res_scales=np.asarray(res_scales)[:n] if residual_bits else None,
+        device=device)
+
+
 def vamana_from_arrays(vectors, adjacency, degrees, entry_point: int,
                        distance, *, sampler_ids: Optional[np.ndarray] = None,
                        dtype=None, device="cuda") -> VamanaIndex:
-    """Build a port :class:`VamanaIndex` over a JAX index's state."""
-    data = dataset_from_array(vectors, dtype=dtype, device=device)
+    """Build a port :class:`VamanaIndex` over a JAX index's state;
+    ``vectors`` may be an :class:`LVQDataset` (:func:`lvq_from_arrays`)."""
+    if isinstance(vectors, LVQDataset):
+        data = vectors
+    else:
+        data = dataset_from_array(vectors, dtype=dtype, device=device)
     graph = graph_from_arrays(adjacency, degrees, data.n, device=device)
     index = VamanaIndex(graph, data, entry_point, distance)
     if sampler_ids is not None:

@@ -15,7 +15,9 @@ available, then suppress" recurrence is a fixed-length loop of masked steps
   ``cur_alpha * sim(p, t) > sim(q, t)`` with the pruned state reset between
   the two rounds (no reset when alpha == 1.0).
 
-Candidate pools must be sorted ascending by key.
+Candidate pools must be sorted ascending by key.  The pool vectors are
+whatever the dataset's ``get_f32`` returns: the decoded rows for a
+compressed dataset, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -30,7 +30,8 @@ class Vamana:
               dtype=None, **kwargs) -> "Vamana":
         """Build an index from an (n, d) array, vecs/npy file path, or
         dataset (reference orchestrators/vamana.h:570-600); ``device``
-        defaults to ``"cuda"``."""
+        defaults to ``"cuda"``.  A compressed dataset builds and serves as
+        it is: ``Vamana.build(params, LVQDataset.compress(x), "l2")``."""
         if isinstance(data, str):
             from ..core.io import read_any
             data = read_any(data, dtype=dtype)

@@ -93,3 +93,105 @@ def test_build_and_search_on_gpu_match_cpu(cuda):
         else:
             assert built == 0 and served == 0
     assert abs(recalls["cuda"] - recalls["cpu"]) <= 0.05, recalls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", [0, 1, 2])
+@pytest.mark.parametrize("label", ["serving", "build"])
+def test_lvq_kernel_matches_plain_exactly(cuda, label, metric):
+    """beam_step_lvq on exact (grid) LVQ inputs: the in-register decode,
+    the dead-lane correction and the shared tie order make all five outputs
+    identical to beam_step_lvq_plain at the main path's serving (n_dead 28)
+    and build (n_dead 0) shapes."""
+    shape = {"serving": chip_smoke.SERVING_SHAPE,
+             "build": chip_smoke.BUILD_SHAPE}[label]
+    rng = np.random.default_rng(sum(shape) + metric)
+    n_dead = chip_smoke.LVQ_DEAD[label]
+    _b, _c, _k, _d, window, m = shape
+    args = chip_smoke.make_lvq_case(rng, shape, n_dead, grid=True)
+    kw = dict(metric=metric, window=window, m=m, n_dead=n_dead)
+    before = bs.beam_step_lvq.launches
+    got = bs.beam_step_lvq(*args, **kw)
+    want = bs.beam_step_lvq_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert bs.beam_step_lvq.launches == before + 1
+    for name, g, w in zip(("keys", "packed", "popped", "pool_keys",
+                           "pool_ids"), got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.gpu
+def test_lvq_kernel_odd_widths(cuda):
+    """A dimension that is no multiple of 16 takes the one-code loads, and
+    d_pad 256 puts 16 lanes on a row; exact inputs still match."""
+    for shape, n_dead in (((8, 7, 5, 50, 3, 2), 3),
+                          ((16, 32, 64, 256, 24, 4), 100)):
+        args = chip_smoke.make_lvq_case(np.random.default_rng(5), shape,
+                                        n_dead, grid=True)
+        for metric in (0, 1, 2):
+            kw = dict(metric=metric, window=shape[4], m=shape[5],
+                      n_dead=n_dead)
+            got = bs.beam_step_lvq(*args, **kw)
+            want = bs.beam_step_lvq_plain(*args, **kw)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+                (shape, metric)
+
+
+@pytest.mark.gpu
+def test_lvq_serving_on_gpu_matches_cpu(cuda):
+    """An LVQ-8 index over one graph on the card and on the CPU: packed
+    and unpacked serving agree with each other on the card, recall within
+    0.02 of the CPU's, and the card's serving runs beam_step_lvq."""
+    data, queries = svt.generate_test_dataset(2000, 100, 48, seed=7)
+    params = svt.VamanaBuildParameters(graph_max_degree=16, window_size=32,
+                                       max_candidate_pool_size=64,
+                                       prune_to=14)
+    built = svt.Vamana.build(params, data, "l2", device="cpu").index
+    gt = svt.exhaustive_search(data, queries, 10, device="cpu")
+    recalls = {}
+    for device in ("cpu", "cuda"):
+        graph = svt.NeighborGraph(built.graph.adjacency.to(device),
+                                  built.graph.degrees.to(device),
+                                  built.graph.n, built.graph.max_degree)
+        index = svt.VamanaIndex(graph, svt.LVQDataset.compress(
+            data, bits=8, device=device), built.entry_point, "l2")
+        index.search_window_size = 16
+        before = bs.beam_step_lvq.launches
+        plain = index.search(queries, 10)
+        index.enable_packed_serving()
+        packed = index.search(queries, 10)
+        served = bs.beam_step_lvq.launches - before
+        assert (served > 0) == (device == "cuda")
+        np.testing.assert_array_equal(plain.ids, packed.ids)
+        recalls[device] = svt.k_recall_at_n(gt, packed)
+    assert abs(recalls["cuda"] - recalls["cpu"]) <= 0.02, recalls
+
+
+@pytest.mark.gpu
+def test_lvq_kernel_rejects_what_it_does_not_take(cuda):
+    shape = (4, 16, 8, 128, 8, 2)
+    args = chip_smoke.make_lvq_case(np.random.default_rng(0), shape, 28,
+                                    grid=True)
+    kw = dict(metric=0, window=8, m=2, n_dead=28)
+
+    def call(i, value, **over):
+        a = list(args)
+        a[i] = value
+        return bs.beam_step_lvq(*a, **{**kw, **over})
+
+    with pytest.raises(TypeError, match="int8"):
+        call(2, args[2].float())
+    with pytest.raises(TypeError, match="scales"):
+        call(3, args[3].double())
+    with pytest.raises(TypeError, match="mean"):
+        call(5, args[5][:, :64].contiguous())
+    with pytest.raises(TypeError, match="queries"):
+        call(7, args[7].bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(2, args[2].transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="on cpu"):
+        call(4, args[4].cpu())
+    for n_dead in (-1, 128):
+        with pytest.raises(ValueError, match="n_dead"):
+            call(0, args[0], n_dead=n_dead)

@@ -1,0 +1,133 @@
+"""Where the PyTorch/CUDA port spends its time on the GPU.
+
+Run from the repository root on a machine with an NVIDIA H100:
+
+    python3 tools/profile_port.py
+
+Builds the 100k x 128 index of ``chip_smoke.py``'s main path (seed 42,
+R=32, window 100, pool 300, prune_to 28, alpha 1.1, sampled entries), then
+profiles with ``torch.profiler``:
+  - one ``search`` of 5000 queries (k=10) for each serving route: f32 data
+    with bf16 packed rows at window 11, LVQ-8 packed and unpacked, and
+    LVQ8x8 packed with its rerank, at window 20;
+  - one build round (B 2500, window 100, pool 300, pass-2 alpha) over the
+    f32 rows and over LVQ-8 codes.
+For each it prints the wall time with the profiler on, the device busy
+time (the sum of the device-side events' times: kernels and copies), the
+device's idle share, the
+beam-step kernels' share, and the largest device items.  It exits
+non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+TOP = 8
+
+
+def device_time(event) -> float:
+    """Self device time of one key_averages() entry, in microseconds."""
+    return getattr(event, "self_device_time_total", None) or \
+        getattr(event, "self_cuda_time_total", 0.0)
+
+
+def profiled(label: str, fn) -> None:
+    fn()                                   # warm up (allocations, caches)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side entries only (kernels, copies, sets): the CPU ops that
+    # launched them carry the same time again
+    items = [(e.key, device_time(e) / 1e3, e.count)
+             for e in prof.key_averages()
+             if e.device_type != DeviceType.CPU and device_time(e) > 0]
+    busy = sum(t for _, t, _ in items)
+    if busy <= 0:
+        raise RuntimeError(f"{label}: the profiler saw no device time")
+    beam = sum(t for key, t, _ in items if "beam_step_kernel" in key)
+    print(f"{label}: wall {wall_ms:.2f} ms (profiler on), device busy "
+          f"{busy:.2f} ms, idle {1 - busy / wall_ms:.1%}, beam-step kernels "
+          f"{beam:.3f} ms = {beam / busy:.1%} of busy", flush=True)
+    for key, t, count in sorted(items, key=lambda x: -x[1])[:TOP]:
+        print(f"  {t:8.3f} ms {t / busy:6.1%} x{count:<5d} {key[:90]}",
+              flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_port: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    import scalablevectorsearch_tpu_torch as svt
+    from scalablevectorsearch_tpu_torch.index.vamana import build as bmod
+    from scalablevectorsearch_tpu_torch.index.vamana import search as smod
+    from scalablevectorsearch_tpu_torch.index.vamana.entry import (
+        build_sampler)
+    from scalablevectorsearch_tpu_torch.index.vamana.index import VamanaIndex
+
+    data, queries = svt.generate_test_dataset(100_000, 5000, 128, seed=42)
+    params = svt.VamanaBuildParameters(
+        alpha=1.1, graph_max_degree=32, window_size=100,
+        max_candidate_pool_size=300, prune_to=28)
+    t0 = time.perf_counter()
+    index = svt.VamanaIndex.build(params, data, "l2", sampled_entries=True)
+    torch.cuda.synchronize()
+    print(f"build {time.perf_counter() - t0:.2f} s", flush=True)
+
+    index.enable_packed_serving()
+    index.search_window_size = 11
+    profiled("serving f32 data, bf16 packed, window 11",
+             lambda: index.search(queries, 10))
+    index.disable_packed_serving()
+
+    for label, bits, res, packed in (("LVQ-8 packed", 8, 0, True),
+                                     ("LVQ-8 unpacked", 8, 0, False),
+                                     ("LVQ8x8 packed + rerank", 8, 8, True)):
+        lvq = VamanaIndex(index.graph, svt.LVQDataset.compress(
+            data, bits=bits, residual_bits=res), index.entry_point, "l2")
+        lvq.enable_entry_sampler()
+        if packed:
+            lvq.enable_packed_serving()
+        lvq.search_window_size = 20
+        profiled(f"serving {label}, window 20",
+                 lambda: lvq.search(queries, 10))
+        del lvq
+
+    b, window = 2500, params.window_size
+    ids = torch.arange(b, dtype=torch.int32, device="cuda")
+    valid = torch.ones(b, dtype=torch.bool, device="cuda")
+    entry = torch.tensor([index.entry_point], dtype=torch.int32,
+                         device="cuda")
+    for label, ds in (("f32 rows", index.data),
+                      ("LVQ-8 codes", svt.LVQDataset.compress(data, bits=8))):
+        sampler = build_sampler(ds, None, seed=0)
+        profiled(f"build round B {b} over {label}", lambda: bmod.build_round(
+            index.graph, ds, ids, valid, entry, sampler, None,
+            window=window, capacity=window,
+            max_iters=smod.default_max_iters(window), distance=svt.L2,
+            pool_size=params.max_candidate_pool_size, gen_alpha=params.alpha,
+            rev_alpha=params.alpha, prune_to=params.prune_to,
+            max_degree=params.graph_max_degree, prune_chunk=256,
+            pop_width=4, tail_frac=4))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
