@@ -7,9 +7,10 @@ sm_90a card) and the CUDA toolkit:
 
 Phases, one line of detail each (any failure exits non-zero):
   1. device: the card, its power limit, the fp32 matmul flags (TF32 off);
-  2. build: nvcc builds csrc/beam_step.cu (both entry points, beam_step and
-     beam_step_lvq) for sm_90a from the checkout; ptxas registers per
-     kernel instance;
+  2. build: nvcc builds csrc/beam_step.cu (beam_step, beam_step_lvq,
+     beam_update) and csrc/gather_distance.cu (score_rows,
+     gather_score_l2_partial) for sm_90a from the checkout, one nvcc per
+     source, both started together; ptxas registers per kernel instance;
   3. kernels: beam_step's CUDA kernel against its plain PyTorch version on
      the card, 3 metrics x {f32, bf16} rows at the serving and the build
      shape, plus median times of both;
@@ -17,22 +18,43 @@ Phases, one line of detail each (any failure exits non-zero):
      both shapes (n_dead 28 at the serving shape, 0 at the build shape),
      exact and real inputs, and against beam_step over the decoded rows;
      median times and the bound;
-  5. main path: a 100k x 128 clustered dataset (seed 42), Vamana build
+  5. kernels, scored: beam_update against beam_update_plain at the serving
+     and build shapes (tied and real keys: identical outputs);
+     score_rows against its plain version at (2048, 128, 128) f32;
+     gather_score_l2_partial against its plain version from a 100k x 128
+     table in f32, float16 and int8, ids with repeats, at (2048, 128);
+     median times, bounds, plain times, and torch.bmm (the dot half of
+     score_rows) as score_rows' library call;
+  6. main path: a 100k x 128 clustered dataset (seed 42), Vamana build
      (R=32, window 100, pool 300, prune_to 28, alpha 1.1, sampled
      entries), exhaustive ground truth, bf16 packed serving of 5000
      queries, window sweep to recall@10 >= 0.9, QPS over 5 repetitions;
      the kernel's launch count must grow during build and during serving;
-  6. LVQ path, over the main path's graph: LVQ-8 packed serving (window
+  7. LVQ path, over the main path's graph: LVQ-8 packed serving (window
      sweep to recall@10 >= 0.9, QPS), LVQ-8 unpacked and two-level LVQ8x8
      packed (rerank) at that window; then an LVQ-8 build at 100k x 128
      with the main path's parameters and its sweep; beam_step_lvq's launch
      count must grow in every one of them;
-  7. golden gate: the L2, MIP and cosine rows of
+  8. scored path, over the main path's data: a float16 VectorDataset on the
+     main path's graph, unpacked (window sweep to recall@10 >= 0.9, QPS,
+     recall within 0.01 of the f32 index at that window;
+     gather_score_l2_partial and beam_update launch); an SQ-int8 build at
+     100k x 128 with the main path's parameters (seconds, mean degree,
+     beam_update and score_rows launches) and its unpacked serving (window
+     sweep against the exact search over the decoded rows, since one
+     global scale caps SQ-int8's recall against the f32 truth; that recall
+     and its cap are printed beside it); one
+     wide search (capacity 1280, window 1280, k 10, 1000 queries, f32
+     rows: gather_score_l2_partial launches, beam_update does not; recall
+     at least the f32 index's at window 128);
+  9. golden gate: the L2, MIP and cosine rows of
      data/golden/vamana_reference.json within +-0.05 recall (cosine
      +-0.10, see GOLDEN_TOL).
-Each path (5, 6) starts with every launch count at 0 and reads them at its
-end.  The line before the last is the kernels' JSON summary; the last line
-is ``{"ok": true, "device": {...}}``.
+Each path (6, 7, 8) starts with every launch count at 0 and reads them at
+its end.  The line before the last is the JSON summary of the five
+kernels (beam_step, beam_step_lvq, beam_update, score_rows,
+gather_score_l2_partial); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -43,6 +65,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -62,6 +85,10 @@ TIMING_REPS = 20
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak
 F32_FLOPS_PER_S = 67e12        # H100 SXM fp32 peak outside the tensor cores
 LVQ_DEAD = {"serving": 28, "build": 0}   # n_dead per shape
+SCORE_SHAPE = (2048, 128, 128)          # B, K, d of the scoring kernels
+TABLE_ROWS = 100_000
+WIDE_CAPACITY = 1280
+SOURCES = ("beam_step", "gather_distance")
 
 
 def log(msg: str) -> None:
@@ -105,13 +132,22 @@ def ptxas_report(text: str) -> list:
 
 
 def phase_build() -> float:
+    """Both sources at once, one nvcc each; returns the wall seconds."""
     from scalablevectorsearch_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
-    path = _build.build("beam_step")
+
+    def one(name):
+        start = time.perf_counter()
+        return _build.build(name), time.perf_counter() - start
+
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = list(pool.map(one, SOURCES))
     seconds = time.perf_counter() - t0
-    log(f"build: beam_step.cu -> {path.name} in {seconds:.2f} s")
-    for line in ptxas_report(path.with_suffix(".log").read_text()):
-        log(f"build: ptxas {line}")
+    for name, (path, own_s) in zip(SOURCES, built):
+        log(f"build: {name}.cu -> {path.name} in {own_s:.2f} s")
+        for line in ptxas_report(path.with_suffix(".log").read_text()):
+            log(f"build: ptxas {line}")
+    log(f"build: both libraries in {seconds:.2f} s")
     return seconds
 
 
@@ -217,14 +253,8 @@ def step_bound(args, m: int, flops_per_value: int) -> dict:
     beam_keys, rows = args[0], args[2]
     b, c = beam_keys.shape
     k = rows.shape[1]
-    bytes_moved = sum(t.numel() * t.element_size() for t in args) \
-        + b * (c * 8 + m * 4 + k * 8)
-    flops = flops_per_value * rows.numel()
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
-    return {"bytes": bytes_moved, "flops": flops,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    return bound_of(nbytes(*args) + b * (c * 8 + m * 4 + k * 8),
+                    flops_per_value * rows.numel())
 
 
 def phase_kernels() -> dict:
@@ -453,28 +483,31 @@ def sweep(index, queries, gt, label: str):
                          f"({' '.join(steps)})")
 
 
-def timed_serving(index, queries, gt, label: str, f32_recall: float
-                  ) -> dict:
+def timed_serving(index, queries, gt, label: str, f32_recall: float,
+                  kernels=None, path: str = "lvq path") -> dict:
     """recall@10 and QPS (median of 5 search_async calls) at the index's
-    window, and the beam_step_lvq launches of those calls (must be > 0)."""
+    window, and the launches of those calls of each of ``kernels`` (the
+    wrappers; beam_step_lvq by default), each of which must be > 0."""
     import scalablevectorsearch_tpu_torch as svt
     from scalablevectorsearch_tpu_torch.ops.kernels.beam_step import (
         beam_step_lvq)
-    before = beam_step_lvq.launches
+    kernels = kernels or (beam_step_lvq,)
+    before = [k.launches for k in kernels]
     times = []
     for _ in range(5):
         t0 = time.perf_counter()
         res = index.search_async(queries, 10).result()
         times.append(time.perf_counter() - t0)
-    launches = beam_step_lvq.launches - before
+    launches = {k.__name__: k.launches - b for k, b in zip(kernels, before)}
     recall = svt.k_recall_at_n(gt, res)
     qps = len(queries) / statistics.median(times)
-    log(f"lvq path: {label} window {index.search_window_size} recall@10 "
+    log(f"{path}: {label} window {index.search_window_size} recall@10 "
         f"{recall:.4f} (f32 index at this window {f32_recall:.4f}); "
         f"search_async x5 median {statistics.median(times) * 1e3:.2f} ms "
-        f"-> {qps:.1f} QPS; beam_step_lvq launches {launches}")
-    if launches == 0:
-        raise AssertionError(f"{label}: beam_step_lvq not launched")
+        f"-> {qps:.1f} QPS; launches {launches}")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"{label}: {name} not launched")
     return {"recall": recall, "qps": qps, "launches": launches}
 
 
@@ -591,19 +624,302 @@ def phase_golden() -> None:
                              + "; ".join(bad))
 
 
+def bound_of(bytes_moved: int, flops: int) -> dict:
+    """The least time for ``bytes_moved`` bytes and ``flops`` f32
+    operations: the larger of bytes over the HBM peak and operations over
+    the f32 peak."""
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return {"bytes": bytes_moved, "flops": flops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def make_update_case(rng, shape, grid: bool):
+    """beam_update inputs on the card: make_case's beam (keys rounded to a
+    1/4 grid when ``grid``) and candidate ids, candidate keys a function of
+    (row, id) in the beam's range (on the same grid when ``grid``, so that
+    different ids tie), 3% of the valid ids with +inf keys."""
+    B, C, K, _d, _window, _m = shape
+    beam_keys, beam_packed, _vecs, cand_ids, _q = make_case(
+        rng, (B, C, K, 4, 1, 1), grid=False)
+    n_ids = max(400, 2 * C)          # make_case's id range
+    table = rng.normal(size=(B, n_ids)).astype(np.float32) ** 2
+    if grid:
+        table = np.round(table * 4) / np.float32(4)
+        beam_keys = torch.round(beam_keys * 4) / 4
+    cl = cand_ids.clamp_min(0).cpu().numpy()
+    keys = np.take_along_axis(table, cl, 1)
+    keys[rng.random(keys.shape) < 0.03] = np.inf
+    return [beam_keys, beam_packed, torch.from_numpy(keys).cuda(), cand_ids]
+
+
+def grid_values(rng, shape, d: int):
+    """Normal values on the 1/32 grid, small enough that every f32 dot
+    product and squared norm of d of them is exact in any order."""
+    kmax = min(127, int(np.sqrt(2.0 ** 22 / d)))
+    return np.clip(np.rint(rng.normal(size=shape) * 32), -kmax,
+                   kmax).astype(np.float32) / np.float32(32)
+
+
+def phase_kernels_scored() -> dict:
+    """The scored route's kernels against their plain versions on the card.
+    beam_update: tied (grid) and real keys, all five outputs identical (the
+    keys are inputs, so nothing is rounded).  score_rows and
+    gather_score_l2_partial: exact (grid) inputs identical; real inputs
+    within rtol 1e-5 (atol 1e-5 of the values' scale): the sums run in
+    another order.  Median times, plain times, bounds, and torch.bmm for
+    the dot half of score_rows."""
+    from scalablevectorsearch_tpu_torch.ops.kernels import beam_update as bu
+    from scalablevectorsearch_tpu_torch.ops.kernels import (
+        gather_distance as gd)
+    rng = np.random.default_rng(3)
+    failures, out = [], {}
+
+    timings = {}
+    for label, shape in (("serving", SERVING_SHAPE), ("build", BUILD_SHAPE)):
+        B, C, K, _d, window, m = shape
+        kw = dict(window=window, m=m)
+        for grid in (True, False):
+            args = make_update_case(rng, shape, grid)
+            got = bu.beam_update(*args, **kw)
+            want = bu.beam_update_plain(*args, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                failures.append(f"beam_update {label} grid={grid} differs")
+        ms = median_ms(lambda: bu.beam_update(*args, **kw))
+        plain_ms = median_ms(lambda: bu.beam_update_plain(*args, **kw))
+        bound = bound_of(nbytes(*args) + B * (C * 8 + m * 4 + (C + K) * 8),
+                         0)
+        timings[label] = {"ms": ms, "plain_ms": plain_ms, **bound}
+        log(f"kernels: beam_update {label} B,C,K={shape[:3]}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of "
+            f"{TIMING_REPS}); bound {bound['bound_ms']:.4f} ms by bytes "
+            f"({bound['bytes']} bytes) = {bound['bound_ms'] / ms:.1%} of it")
+    out["beam_update"] = {"max_abs_err": 0.0, "timings": timings}
+
+    B, K, d = SCORE_SHAPE
+    max_err = 0.0
+    for grid in (True, False):
+        if grid:
+            rows = grid_values(rng, (B, K, d), d)
+            q = grid_values(rng, (B, d), d)
+        else:
+            rows = rng.normal(size=(B, K, d)).astype(np.float32)
+            q = rng.normal(size=(B, d)).astype(np.float32)
+        rows, q = torch.from_numpy(rows).cuda(), torch.from_numpy(q).cuda()
+        got = gd.score_rows(rows, q)
+        want = gd.score_rows_plain(rows, q)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dots", "x2"), got, want):
+            if grid and not torch.equal(g, w):
+                failures.append(f"score_rows grid {name} differs")
+            err = float((g - w).abs().max())
+            max_err = max(max_err, err)
+            if not torch.allclose(g, w, rtol=1e-5,
+                                  atol=1e-5 * float(w.abs().max())):
+                failures.append(f"score_rows grid={grid} {name}: {err:.3g}")
+    ms = median_ms(lambda: gd.score_rows(rows, q))
+    plain_ms = median_ms(lambda: gd.score_rows_plain(rows, q))
+    bmm_ms = median_ms(lambda: torch.bmm(rows, q[:, :, None]))
+    # per value: a multiply-add for the dot and one for the norm
+    bound = bound_of(nbytes(rows, q) + 2 * B * K * 4, 4 * rows.numel())
+    out["score_rows"] = {"max_abs_err": max_err, "library_ms": bmm_ms,
+                         "timings": {"f32": {"ms": ms, "plain_ms": plain_ms,
+                                             **bound}}}
+    log(f"kernels: score_rows B,K,d={SCORE_SHAPE} f32: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, torch.bmm (dots only) {bmm_ms:.4f} ms; "
+        f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+        f"({bound['bytes']} bytes) = {bound['bound_ms'] / ms:.1%} of it; "
+        f"real inputs max_abs_err {max_err:.3g}")
+
+    max_err, timings = 0.0, {}
+    ids = rng.integers(0, TABLE_ROWS, size=(B, K)).astype(np.int32)
+    ids[::2, K // 2:] = ids[::2, :K // 2]        # repeats within a row
+    ids = torch.from_numpy(ids).cuda()
+    n_unique = int(torch.unique(ids).numel())
+    for grid in (True, False):
+        if grid:
+            base = grid_values(rng, (TABLE_ROWS, d), d)
+            q = torch.from_numpy(grid_values(rng, (B, d), d)).cuda()
+        else:
+            base = rng.normal(size=(TABLE_ROWS, d)).astype(np.float32)
+            q = torch.from_numpy(rng.normal(size=(B, d)).astype(
+                np.float32)).cuda()
+        base = torch.from_numpy(base).cuda()
+        tables = {"f32": base, "float16": base.half(),
+                  "int8": (base * 32).round().clamp(-127, 127).to(torch.int8)}
+        for name, table in tables.items():
+            got = gd.gather_score_l2_partial(table, ids, q)
+            want = gd.gather_score_l2_partial_plain(table, ids, q)
+            torch.cuda.synchronize()
+            if grid and not torch.equal(got, want):
+                failures.append(f"gather_score_l2_partial {name} grid "
+                                "differs")
+            err = float((got - want).abs().max())
+            if not grid:
+                max_err = max(max_err, err)
+            if not torch.allclose(got, want, rtol=1e-5,
+                                  atol=1e-5 * float(want.abs().max())):
+                failures.append(f"gather_score_l2_partial {name} "
+                                f"grid={grid}: {err:.3g}")
+            if grid:
+                continue
+            ms = median_ms(lambda: gd.gather_score_l2_partial(table, ids, q))
+            plain_ms = median_ms(
+                lambda: gd.gather_score_l2_partial_plain(table, ids, q))
+            # the rows this run's ids need (each distinct row once), the
+            # ids, the queries and the output
+            row_bytes = d * table.element_size()
+            bound = bound_of(n_unique * row_bytes + nbytes(ids, q)
+                             + B * K * 4, 4 * B * K * d)
+            timings[name] = {"ms": ms, "plain_ms": plain_ms, **bound}
+            log(f"kernels: gather_score_l2_partial {name} table "
+                f"{TABLE_ROWS}x{d}, ids ({B}, {K}) ({n_unique} distinct): "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+                f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+                f"({bound['bytes']} bytes) = {bound['bound_ms'] / ms:.1%} of "
+                "it")
+    out["gather_score_l2_partial"] = {"max_abs_err": max_err,
+                                      "timings": timings}
+    if failures:
+        raise AssertionError("scored kernels vs plain: "
+                             + "; ".join(failures))
+    log(f"kernels: beam_update, score_rows, gather_score_l2_partial match "
+        f"their plain versions; partial max_abs_err {max_err:.3g}")
+    return out
+
+
+def phase_scored_path(main_path: dict) -> dict:
+    """The scored route over the main path's data and graph, an SQ-int8
+    build, and one wide search; every count starts at 0 here."""
+    import scalablevectorsearch_tpu_torch as svt
+    from scalablevectorsearch_tpu_torch.core.query_result import QueryResult
+    from scalablevectorsearch_tpu_torch.index.vamana.index import (
+        VamanaIndex)
+    from scalablevectorsearch_tpu_torch.ops.kernels.beam_step import (
+        beam_step, beam_step_lvq)
+    from scalablevectorsearch_tpu_torch.ops.kernels.beam_update import (
+        beam_update)
+    from scalablevectorsearch_tpu_torch.ops.kernels.gather_distance import (
+        gather_score_l2_partial, score_rows)
+    index = main_path["index"].index
+    data, queries, gt = (main_path[key] for key in ("data", "queries", "gt"))
+    counted = (beam_step, beam_step_lvq, beam_update, score_rows,
+               gather_score_l2_partial)
+    for kernel in counted:
+        kernel.launches = 0
+    torch.cuda.empty_cache()
+    out = {}
+
+    def f32_recall(window, q=queries, truth=gt):
+        index.search_window_size = window
+        return svt.k_recall_at_n(truth, index.search(q, 10))
+
+    # 1. float16 rows on the main graph, unpacked
+    f16 = VamanaIndex(index.graph, svt.VectorDataset.from_array(
+        data, dtype=torch.float16), index.entry_point, index.distance,
+        query_batch_size=index.query_batch_size)
+    f16.enable_entry_sampler()
+    f16.pop_width = index.pop_width
+    window, _ = sweep(f16, queries, gt, "scored path: float16")
+    f16.search_window_size = window
+    ref = f32_recall(window)
+    out["float16"] = timed_serving(
+        f16, queries, gt, "float16 unpacked", ref,
+        kernels=(gather_score_l2_partial, beam_update), path="scored path")
+    out["float16"]["window"] = window
+    if abs(out["float16"]["recall"] - ref) > 0.01:
+        raise AssertionError(f"float16 recall {out['float16']['recall']} "
+                             f"vs f32 {ref} at window {window}")
+    del f16
+
+    # 2. an SQ-int8 build and its unpacked serving.  One global scale
+    # caps SQ-int8's recall against the f32 ground truth below 0.9 here
+    # (the exact search over the decoded rows reaches `ceiling`), so the
+    # graph search is held to that exact search's answers, and its recall
+    # against the f32 truth is reported beside it.
+    sq = svt.SQDataset.compress(data)
+    sq_gt = svt.exhaustive_search(sq.to_numpy(), queries, 10)
+    ceiling = svt.k_recall_at_n(gt, sq_gt)
+    log(f"scored path: SQ-int8 scale {sq.scale:.6g}: exact search over the "
+        f"decoded rows has recall@10 {ceiling:.4f} against the f32 truth")
+    before = {k.__name__: k.launches for k in counted}
+    t0 = time.perf_counter()
+    built = svt.Vamana.build(main_path_params(), sq, "l2",
+                             sampled_entries=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches - before[k.__name__]
+                for k in counted}
+    log(f"scored path: SQ-int8 build {data.shape[0]}x{data.shape[1]} in "
+        f"{build_s:.2f} s, mean "
+        f"degree {built.index.graph.mean_degree():.3f}, launches {launches}")
+    if not (launches["beam_update"] and launches["score_rows"]):
+        raise AssertionError("SQ-int8 build: beam_update or score_rows not "
+                             "launched")
+    window, _ = sweep(built, queries, sq_gt,
+                      "scored path: SQ-int8 build, against the decoded rows")
+    built.search_window_size = window
+    out["sq8"] = timed_serving(
+        built.index, queries, sq_gt, "SQ-int8 unpacked", f32_recall(window),
+        kernels=(score_rows, beam_update), path="scored path")
+    vs_f32 = svt.k_recall_at_n(gt, built.search(queries, 10))
+    log(f"scored path: SQ-int8 at window {window}: recall@10 against the "
+        f"f32 truth {vs_f32:.4f} (ceiling {ceiling:.4f})")
+    out["sq8"].update(window=window, build_s=build_s,
+                      build_launches=launches, vs_f32=vs_f32,
+                      ceiling=ceiling,
+                      mean_degree=built.index.graph.mean_degree())
+    del built, sq
+    torch.cuda.empty_cache()
+
+    # 3. one wide search: capacity 1280 over the f32 rows
+    nq = 1000
+    sub_gt = QueryResult(ids=gt.ids[:nq], distances=gt.distances[:nq])
+    ref = f32_recall(128, queries[:nq], sub_gt)
+    before = {k.__name__: k.launches for k in counted}
+    index.search_window_size = WIDE_CAPACITY
+    t0 = time.perf_counter()
+    res = index.search(queries[:nq], 10)
+    wide_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches - before[k.__name__]
+                for k in counted}
+    recall = svt.k_recall_at_n(sub_gt, res)
+    log(f"scored path: wide search capacity {WIDE_CAPACITY} window "
+        f"{WIDE_CAPACITY}, {nq} queries in {wide_s:.2f} s, recall@10 "
+        f"{recall:.4f} (f32 index at window 128: {ref:.4f}); launches "
+        f"{launches}")
+    if launches["gather_score_l2_partial"] == 0 or launches["beam_update"] \
+            or launches["beam_step"]:
+        raise AssertionError(f"wide search took another route: {launches}")
+    if recall < ref:
+        raise AssertionError(f"wide search recall {recall} < {ref}")
+    out["wide"] = {"recall": recall, "seconds": wide_s, "ref": ref}
+    out["launches"] = {k.__name__: k.launches for k in counted}
+    log(f"scored path: launches {out['launches']}")
+    return out
+
+
 def kernel_entry(name: str, replaces: str, launches: int, kern: dict,
-                 shape: str, build_s: float) -> dict:
+                 shape: str, build_s: float,
+                 source: str = "beam_step.cu") -> dict:
     """One kernel's entry of the summary line: times and bound at the main
-    path's serving shape; every shape's numbers under ``ms_by_shape``."""
+    path's shape ``shape``; every shape's numbers under ``ms_by_shape``.
+    ``library_ms`` is one PyTorch call computing the same function, where
+    there is one (none scores, dedups, merges and pops)."""
     t = kern["timings"][shape]
     return {"name": name, "route": "cuda",
-            "source": "scalablevectorsearch_tpu_torch/csrc/beam_step.cu",
+            "source": f"scalablevectorsearch_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches,
             "max_abs_err": kern["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
-            # no single PyTorch call scores, dedups, merges and pops
-            "library_ms": None, "build_s": build_s,
+            "library_ms": kern.get("library_ms"), "build_s": build_s,
             "ms_by_shape": kern["timings"]}
 
 
@@ -612,19 +928,30 @@ def main() -> int:
     build_s = phase_build()
     kern = phase_kernels()
     kern_lvq = phase_kernels_lvq()
+    kern_scored = phase_kernels_scored()
     main_path = phase_main_path()
     main_launches = main_path["launches"]
     lvq_path = phase_lvq_path(main_path)
+    scored = phase_scored_path(main_path)["launches"]
     del main_path                       # frees the 100k index
     phase_golden()
+    pallas = "scalablevectorsearch_tpu/ops/pallas/"
     print(json.dumps({"kernels": [
-        kernel_entry("beam_step",
-                     "scalablevectorsearch_tpu/ops/pallas/beam_step.py:261",
-                     main_launches, kern, "serving_bf16",
-                     build_s),
-        kernel_entry("beam_step_lvq",
-                     "scalablevectorsearch_tpu/ops/pallas/beam_step.py:327",
-                     lvq_path["launches"], kern_lvq, "serving", build_s)]}))
+        kernel_entry("beam_step", pallas + "beam_step.py:261",
+                     main_launches, kern, "serving_bf16", build_s),
+        kernel_entry("beam_step_lvq", pallas + "beam_step.py:327",
+                     lvq_path["launches"], kern_lvq, "serving", build_s),
+        kernel_entry("beam_update", pallas + "beam_update.py:179",
+                     scored["beam_update"], kern_scored["beam_update"],
+                     "serving", build_s),
+        kernel_entry("score_rows", pallas + "gather_distance.py:41",
+                     scored["score_rows"], kern_scored["score_rows"], "f32",
+                     build_s, source="gather_distance.cu"),
+        kernel_entry("gather_score_l2_partial",
+                     pallas + "gather_distance.py:131",
+                     scored["gather_score_l2_partial"],
+                     kern_scored["gather_score_l2_partial"], "float16",
+                     build_s, source="gather_distance.cu")]}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -1,11 +1,12 @@
 """scalablevectorsearch_tpu_torch: the PyTorch/CUDA port of
 scalablevectorsearch_tpu.
 
-Static Vamana build and batched search over f32/bf16 and LVQ-compressed
-datasets, flat exhaustive search for ground truth, and recall, in PyTorch
-on one NVIDIA H100; the per-iteration beam step is a CUDA kernel written for
-Hopper (``csrc/beam_step.cu``), with a second entry that decodes LVQ-8
-codes in registers.  The JAX package stays the reference this port is
+Static Vamana build and batched search over f32/bf16/float16/int8/uint8,
+scalar-quantized (SQ) and LVQ-compressed datasets, flat exhaustive search
+for ground truth, and recall, in PyTorch on one NVIDIA H100.  The
+per-iteration beam step is a CUDA kernel written for Hopper
+(``csrc/beam_step.cu``: beam_step, beam_step_lvq, and beam_update for
+candidates scored beforehand by ``csrc/gather_distance.cu``).  The JAX package stays the reference this port is
 tested against.  Tensors are created on ``device="cuda"`` unless a caller
 passes another device; nothing moves to the CPU by itself.
 """
@@ -25,6 +26,7 @@ from .index.vamana.params import (SearchBufferConfig, VamanaBuildParameters,
 from .ops.distance import DistanceType, as_distance
 from .orchestrators.vamana import Vamana
 from .quantization.lvq import LVQDataset
+from .quantization.scalar import SQDataset
 
 L2 = DistanceType.L2
 MIP = DistanceType.MIP
@@ -37,5 +39,5 @@ __all__ = [
     "DistanceType", "as_distance", "L2", "MIP", "Cosine",
     "FlatIndex", "exhaustive_search",
     "VamanaIndex", "VamanaBuildParameters", "VamanaSearchParameters",
-    "SearchBufferConfig", "Vamana", "LVQDataset",
+    "SearchBufferConfig", "Vamana", "LVQDataset", "SQDataset",
 ]

@@ -1,18 +1,21 @@
 // One lockstep beam-search iteration for a batch of queries, on Hopper.
 //
-// Replaces two Pallas kernels of scalablevectorsearch_tpu/ops/pallas/
-// beam_step.py: beam_step (the kernel the JAX package runs on every serving
-// and build iteration over f32/bf16 rows) and beam_step_lvq (the same step
-// over LVQ-8 code rows decoded in the kernel).  The Python wrappers and the
-// plain PyTorch versions of both are in
-// scalablevectorsearch_tpu_torch/ops/kernels/beam_step.py.
+// Replaces three Pallas kernels: beam_step (the kernel the JAX package runs
+// on every serving and build iteration over f32/bf16 rows) and
+// beam_step_lvq (the same step over LVQ-8 code rows decoded in the kernel),
+// both in scalablevectorsearch_tpu/ops/pallas/beam_step.py, and beam_update
+// (scalablevectorsearch_tpu/ops/pallas/beam_update.py: the same merge and
+// pop over candidates scored beforehand).  The Python wrappers and the
+// plain PyTorch versions are in scalablevectorsearch_tpu_torch/ops/kernels/
+// beam_step.py and beam_update.py.
 //
 // Per query row it scores K gathered candidate rows, masks ids repeated
 // within the iteration and ids already in the beam, sorts the candidates,
 // merges them into the sorted beam (truncated to C) and pops the first m
 // unvisited slots inside the window, setting their visited bit
-// (packed = id | visited << 30).  One kernel template serves both entry
-// points; only the row loader differs (DenseRows / LvqRows below).
+// (packed = id | visited << 30).  One kernel template serves the three
+// entry points; only the row loader differs (DenseRows / LvqRows below, and
+// KeyRows, which reads the keys as given and scores nothing).
 //
 // What bounds it: bytes.  Reading the (B, K, d) gathered rows dominates:
 // 128 * 128 * 4 B = 64 KB per row per iteration at f32 (half that at bf16,
@@ -22,6 +25,8 @@
 // beam in shared memory, and writes nothing intermediate to device memory:
 // the only stores are the five outputs.  LVQ rows are decoded in registers
 // (mean + bias + scale * code), so the f32 rows never exist in memory.
+// beam_update reads a few kilobytes per query (keys, ids, beam) and is
+// bound by its rank steps and launch latency, not by bytes.
 //
 // Layout: one CTA of 256 threads per query row.  Warps score candidates
 // with a stride, four rows in flight per warp.  The dedup, the sort and the
@@ -95,6 +100,7 @@ __device__ __forceinline__ int count_below(const float* a, int n, float v,
 // Dense f32/bf16 rows: the whole warp on one row, four rows in flight.
 template <typename VecT>
 struct DenseRows {
+  static constexpr bool kScores = true;
   const VecT* vecs;  // (B, K, d)
   int vec4;          // d % 4 == 0 and 4-element-aligned rows
 
@@ -147,6 +153,7 @@ struct DenseRows {
 // of two, at most 32 and at most the chunk count) share one row, so a warp
 // scores 32 / G rows per pass (4 rows at d = 128, one chunk per lane).
 struct LvqRows {
+  static constexpr bool kScores = true;
   const int8_t* codes;   // (B, K, d)
   const float* scales;   // (B, K)
   const float* biases;   // (B, K)
@@ -223,6 +230,15 @@ struct LvqRows {
   }
 };
 
+// Candidates scored beforehand (beam_update): the keys are read as given.
+// A candidate is valid when its id is >= 0 and its key finite, as in the
+// JAX kernel; the pool then keeps only the candidates that enter the merge
+// (not repeated within the iteration, not already in the beam).
+struct KeyRows {
+  static constexpr bool kScores = false;
+  const float* keys;     // (B, K)
+};
+
 template <class Rows, typename QT>
 __global__ void __launch_bounds__(kThreads)
 beam_step_kernel(Rows rows_in, const float* __restrict__ mean,
@@ -233,7 +249,7 @@ beam_step_kernel(Rows rows_in, const float* __restrict__ mean,
                  float* __restrict__ out_keys, int* __restrict__ out_packed,
                  int* __restrict__ popped, float* __restrict__ pool_keys,
                  int* __restrict__ pool_ids, int C, int K, int d, int metric,
-                 int window, int m) {
+                 int window, int m, int pool_stride) {
   extern __shared__ __align__(16) float smem[];
   const int d_al = (d + 3) & ~3;
   float* q_s = smem;                                  // d_al  query (f32)
@@ -276,6 +292,14 @@ beam_step_kernel(Rows rows_in, const float* __restrict__ mean,
   for (int w = 0; w < kWarps; ++w) qn += red[w];
 
   // ---- 1. score: kUnroll rows per warp step ------------------------------
+  if constexpr (!Rows::kScores) {
+    for (int j = tid; j < K; j += kThreads) {
+      const float key = rows_in.keys[static_cast<size_t>(row) * K + j];
+      const bool valid = cid[j] >= 0 && isfinite(key);
+      ck[j] = valid ? key : inf;
+      sortid[j] = valid ? cid[j] : kIntBig;
+    }
+  } else
   for (int j0 = warp * kUnroll; j0 < K; j0 += kWarps * kUnroll) {
     float dot[kUnroll], x2[kUnroll];
     rows_in.score(row, j0, K, d, q_s, mean_s, lane, dot, x2);
@@ -302,7 +326,17 @@ beam_step_kernel(Rows rows_in, const float* __restrict__ mean,
 
   // ---- 2. id order: dedup within the iteration, pool outputs ------------
   // rank = position in the stable sort by id (invalid ids last); the first
-  // copy of an id keeps its key, later copies get +inf.
+  // copy of an id keeps its key, later copies get +inf.  beam_step's pool
+  // is written here (in-beam candidates stay); beam_update's after step 3,
+  // with +inf / -1 for every candidate that does not enter the merge, and
+  // its last C columns empty.
+  const size_t pool_row = static_cast<size_t>(row) * pool_stride;
+  if constexpr (!Rows::kScores) {
+    for (int i = tid; i < pool_stride - K; i += kThreads) {
+      pool_keys[pool_row + K + i] = inf;
+      pool_ids[pool_row + K + i] = -1;
+    }
+  }
   for (int j = tid; j < K; j += kThreads) {
     const int sj = sortid[j];
     int rank = 0;
@@ -313,8 +347,10 @@ beam_step_kernel(Rows rows_in, const float* __restrict__ mean,
       dup |= (si == sj) && (i < j);
     }
     float key = (dup && sj != kIntBig) ? inf : ck[j];
-    pool_keys[static_cast<size_t>(row) * K + rank] = key;
-    pool_ids[static_cast<size_t>(row) * K + rank] = cid[j];
+    if constexpr (Rows::kScores) {
+      pool_keys[pool_row + rank] = key;
+      pool_ids[pool_row + rank] = cid[j];
+    }
     // ---- 3. beam membership: candidates already in the beam ------------
     if (sj != kIntBig && key < inf) {
       for (int i = 0; i < C; ++i) {
@@ -323,6 +359,10 @@ beam_step_kernel(Rows rows_in, const float* __restrict__ mean,
           break;
         }
       }
+    }
+    if constexpr (!Rows::kScores) {
+      pool_keys[pool_row + rank] = key;
+      pool_ids[pool_row + rank] = key < inf ? cid[j] : -1;
     }
     ck[j] = key;
   }
@@ -389,7 +429,7 @@ cudaError_t launch(Rows rows, const float* mean, const void* beam_keys,
                    const void* queries, void* out_keys, void* out_packed,
                    void* popped, void* pool_keys, void* pool_ids, int B, int C,
                    int K, int d, int metric, int window, int m,
-                   cudaStream_t stream) {
+                   int pool_stride, cudaStream_t stream) {
   const int d_al = (d + 3) & ~3;
   const size_t smem =
       sizeof(float) * ((mean ? 2 : 1) * d_al + 5 * K + 4 * C + kWarps);
@@ -406,7 +446,7 @@ cudaError_t launch(Rows rows, const float* mean, const void* beam_keys,
       static_cast<const QT*>(queries), static_cast<float*>(out_keys),
       static_cast<int*>(out_packed), static_cast<int*>(popped),
       static_cast<float*>(pool_keys), static_cast<int*>(pool_ids), C, K, d,
-      metric, window, m);
+      metric, window, m, pool_stride);
   return cudaGetLastError();
 }
 
@@ -432,7 +472,7 @@ extern "C" int svt_beam_step(const void* beam_keys, const void* beam_packed,
   launch<DenseRows<V>, Q>(dense_rows<V>(vecs, vec4), nullptr, beam_keys,      \
                           beam_packed, cand_ids, queries, out_keys,           \
                           out_packed, popped, pool_keys, pool_ids, B, C, K, d, \
-                          metric, window, m, s)
+                          metric, window, m, K, s)
   cudaError_t err;
   if (vecs_bf16) {
     err = queries_bf16 ? SVT_LAUNCH(__nv_bfloat16, __nv_bfloat16)
@@ -462,5 +502,20 @@ extern "C" int svt_beam_step_lvq(const void* beam_keys, const void* beam_packed,
   return static_cast<int>(launch<LvqRows, float>(
       rows, static_cast<const float*>(mean), beam_keys, beam_packed, cand_ids,
       queries, out_keys, out_packed, popped, pool_keys, pool_ids, B, C, K, d,
-      metric, window, m, static_cast<cudaStream_t>(stream)));
+      metric, window, m, K, static_cast<cudaStream_t>(stream)));
+}
+
+// beam_update: cand_keys (B, K) f32 scored beforehand, cand_ids (B, K);
+// pool_keys / pool_ids are (B, C + K).
+extern "C" int svt_beam_update(const void* beam_keys, const void* beam_packed,
+                               const void* cand_keys, const void* cand_ids,
+                               void* out_keys, void* out_packed, void* popped,
+                               void* pool_keys, void* pool_ids, int B, int C,
+                               int K, int window, int m, void* stream) {
+  if (B == 0) return 0;
+  const KeyRows rows{static_cast<const float*>(cand_keys)};
+  return static_cast<int>(launch<KeyRows, float>(
+      rows, nullptr, beam_keys, beam_packed, cand_ids, nullptr, out_keys,
+      out_packed, popped, pool_keys, pool_ids, B, C, K, 0, 0, window, m,
+      C + K, static_cast<cudaStream_t>(stream)));
 }

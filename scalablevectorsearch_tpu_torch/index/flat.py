@@ -27,8 +27,9 @@ def flat_search_kernel(data, queries: torch.Tensor, k: int,
     """Streaming exhaustive top-k over dataset tiles.
 
     Args:
-      data: dataset-protocol object (``VectorDataset``, ``LVQDataset``)
-        whose capacity is a multiple of ``tile``.
+      data: dataset-protocol object (``VectorDataset``, ``SQDataset``,
+        ``LVQDataset``) whose capacity is a multiple of ``tile``; SQ and
+        LVQ score each tile in the code domain (their ``tile_keys``).
       queries: (B, d_pad) tensor on the dataset's device.
       row_mask: optional (capacity,) bool; False rows are excluded.
 
@@ -133,6 +134,10 @@ class FlatIndex:
 
 def exhaustive_search(x, queries, k: int, distance="L2",
                       device="cuda") -> QueryResult:
-    """One-shot ground-truth computation (benchmark/test helper)."""
+    """One-shot ground-truth computation (benchmark/test helper); ``x`` is
+    an (n, d) array or a dataset (``SQDataset``, ``LVQDataset``, which keep
+    their own device)."""
+    if hasattr(x, "tile_keys"):
+        return FlatIndex(x, dist_ops.as_distance(distance)).search(queries, k)
     return FlatIndex.from_array(x, distance=distance,
                                 device=device).search(queries, k)

@@ -13,10 +13,11 @@ with the same round structure (the reference's ``VamanaBuilder``,
      {adjacency ∪ overflow backedges}.
 
 Two passes over all batches, reverse-edge alphas 1.0 then ``alpha``.  The
-dataset is any dataset-protocol object (``VectorDataset``, ``LVQDataset``,
-``LVQFullView``): rows go through ``get`` / ``get_f32`` and norms through
-``norms_of``, so compressed data is searched and pruned on its decoded
-rows.  The
+dataset is any dataset-protocol object (``VectorDataset`` of any element
+type, ``SQDataset``, ``LVQDataset``, ``LVQFullView``): rows go through
+``get`` / ``get_f32`` and norms through ``norms_of``, so compressed data is
+searched and pruned on its decoded rows (float16 / int8 / SQ searches take
+``greedy_search``'s scored route).  The
 JAX package's ``associative_scan(jnp.maximum)`` is ``torch.cummax`` here,
 and its dropped (``mode="drop"``) scatters write into sink slots that are
 sliced off.  Sorts are stable, so the build is deterministic for a fixed

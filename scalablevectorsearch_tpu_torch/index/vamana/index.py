@@ -7,8 +7,10 @@ search parameters; provides build, batch search (``search`` /
 equal-size lockstep batches; each batch is uploaded (f16 by default),
 dequantized on the device, given sampled entry points when the sampler is
 on, searched, reranked with both levels for two-level LVQ data, and its
-keys converted to distances.  The dataset is a ``VectorDataset`` or an
-``LVQDataset`` (one- or two-level; packed serving packs its codes).
+keys converted to distances.  The dataset is a ``VectorDataset`` (f32,
+bf16, float16, int8 or uint8 rows), an ``SQDataset`` or an ``LVQDataset``
+(one- or two-level; packed serving packs its codes); ``search.py`` says
+which route each takes.
 
 Not part of this package yet: save/assemble and the stream archive, and
 the host-side exact rerank.
@@ -222,10 +224,12 @@ class VamanaIndex:
               logger=None,
               device="cuda",
               **kwargs) -> "VamanaIndex":
-        """Build from an (n, d) array or a dataset-protocol object
-        (``VectorDataset``, ``LVQDataset``; a dataset keeps its own
-        device).  Two-level LVQ builds over its full reconstruction
-        (``full_view()``); serving traverses the primary level."""
+        """Build from an (n, d) array (stored as ``dtype``: f32, bf16,
+        float16, int8 or uint8) or a dataset-protocol object
+        (``VectorDataset``, ``SQDataset``, ``LVQDataset``; a dataset keeps
+        its own device).  Compressed datasets build on their decoded rows;
+        two-level LVQ builds over its full reconstruction (``full_view()``);
+        serving traverses the primary level."""
         if not hasattr(data, "norms_sq"):   # raw array
             data = VectorDataset.from_array(data, dtype=dtype, device=device)
         distance = dist_ops.as_distance(distance)
@@ -278,7 +282,9 @@ class VamanaIndex:
         """Materialize inline neighbor vectors
         (``packed.pack_neighborhoods``): R-fold fewer row gathers per search
         iteration at ``capacity * R * d * itemsize`` bytes of device
-        memory.  LVQ datasets pack their neighbors' codes instead
+        memory.  Over float16 / int8 / SQ data the packed rows are bf16
+        (decoded for SQ) and the final beam is re-scored against the
+        dataset's rows.  LVQ datasets pack their neighbors' codes instead
         (``packed.pack_neighborhoods_lvq``, ``dtype`` unused): exact
         decoding, so results equal unpacked LVQ serving."""
         from ...quantization.lvq import LVQDataset
@@ -287,9 +293,10 @@ class VamanaIndex:
             self._packed = pack_neighborhoods_lvq(self.graph, self.data,
                                                   chunk=chunk)
             return
-        if not isinstance(self.data, VectorDataset):
-            raise ValueError("packed serving requires an uncompressed "
-                             "VectorDataset or an LVQDataset")
+        if getattr(self.data, "residual_bits", 0) or \
+                not hasattr(self.data, "vectors"):
+            raise ValueError("packed serving requires a VectorDataset, an "
+                             "SQDataset or an LVQDataset")
         self._packed = pack_neighborhoods(self.graph, self.data, dtype,
                                           chunk=chunk)
 
@@ -393,8 +400,8 @@ class VamanaIndex:
 
     # -- reconstruction -----------------------------------------------------------
     def reconstruct_at(self, ids) -> np.ndarray:
-        """Return the (decoded, primary-level for LVQ) vectors for the given
-        internal ids through the dataset's ``get_f32`` (reference
+        """Return the (decoded: SQ, primary-level for LVQ) vectors for the
+        given internal ids through the dataset's ``get_f32`` (reference
         index.h:630-671)."""
         ids = np.asarray(ids, dtype=np.int64)
         if np.any((ids < 0) | (ids >= self.size)):

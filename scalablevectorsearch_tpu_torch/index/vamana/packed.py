@@ -3,8 +3,9 @@
 PyTorch counterpart of ``scalablevectorsearch_tpu/index/vamana/packed.py``:
 ``packed[v, j] = vectors[adjacency[v, j]]``, so a search iteration reads the
 popped nodes' neighbor rows as m contiguous (R, d) super-rows instead of
-m * R scattered rows.  With a lossy packed dtype (bf16 over an f32 dataset)
-the final beam is re-scored against the exact rows.  LVQ datasets pack
+m * R scattered rows.  With a lossy packed dtype (bf16 over an f32,
+float16, int8 or SQ dataset) the final beam is re-scored against the
+dataset's own rows.  LVQ datasets pack
 their neighbors' codes with per-neighbor (scale, bias) instead
 (:class:`PackedLVQNeighborhoods`): half (LVQ-8) to a quarter (LVQ-4) of
 the bf16 packed bytes, decoded exactly, so no re-score is needed.
@@ -23,16 +24,18 @@ def pack_neighborhoods(graph, data, dtype=torch.bfloat16,
 
     Slots where ``adjacency[v, j] == -1`` hold row 0's vector; consumers mask
     by the adjacency ids, never by the packed contents.  Chunked to bound
-    the transient gather output.
+    the transient gather output.  ``data.vectors`` is read once: an
+    ``SQDataset`` decodes its whole matrix there.
     """
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"packed dtype {dtype}: float32 or bfloat16")
     cap, r = graph.adjacency.shape
+    vectors = data.vectors
     out = torch.empty((cap, r, data.padded_dim), dtype=dtype,
                       device=data.device)
     for start in range(0, cap, chunk):
         adj = graph.adjacency[start:start + chunk]
-        out[start:start + chunk] = data.vectors[adj.clamp_min(0)].to(dtype)
+        out[start:start + chunk] = vectors[adj.clamp_min(0)].to(dtype)
     return out
 
 

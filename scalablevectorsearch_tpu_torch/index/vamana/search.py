@@ -1,14 +1,16 @@
 """Lockstep batched greedy graph search.
 
-PyTorch counterpart of the kernel branch of
-``scalablevectorsearch_tpu/index/vamana/search.py::greedy_search``
-(``search.py:253-375``).  A whole batch of queries advances in lockstep: the
-search buffer is a dense (B, C) beam sorted ascending by key, and every
-iteration gathers the popped nodes' neighbors, fetches their rows (from the
-dataset, or from packed neighborhoods) and runs one beam-step kernel, which
-scores, dedups, merges and pops on the GPU.
+PyTorch counterpart of ``scalablevectorsearch_tpu/index/vamana/search.py::
+greedy_search``, both its branches.  A whole batch of queries advances in
+lockstep: the search buffer is a dense (B, C) beam sorted ascending by key,
+and every iteration gathers the popped nodes' neighbors, scores them, and
+merges them into the beam.
 
-Each kind of row has one route:
+Beams of up to 1024 slots (the JAX package's ``capacity <= 1024`` rule)
+run the loop of the JAX kernel branch (``search.py:253-375``): an initial
+pop, then expand -> step -> pop, where one kernel launch per iteration
+scores (or takes scored keys), dedups, merges and pops on the GPU.  Each
+kind of row has one route:
 - f32 / bf16 ``VectorDataset`` rows, or bf16 / f32 packed super-rows:
   :func:`beam_step`;
 - LVQ-8 codes, gathered per neighbour (``LVQDataset`` with 8 bits) or as
@@ -21,12 +23,28 @@ Each kind of row has one route:
   the same codes to the same kernel and give identical results;
 - LVQ-4 rows, packed or not, and the two-level ``LVQFullView``: decoded to
   f32 (``affine_decode``), then :func:`beam_step`.  For unpacked LVQ-4 the
-  JAX package takes its XLA branch; the function is the same.
+  JAX package takes its XLA branch; the function is the same;
+- every other dataset, unpacked (float16 / int8 / uint8 ``VectorDataset``,
+  ``SQDataset``): the **scored route**.  The candidates are scored first —
+  an L2 ``VectorDataset`` by :func:`gather_score_l2_partial` straight from
+  its table plus ``||q||^2``; decoded rows (``SQDataset.get``) and MIP /
+  cosine by :func:`score_rows` over the gathered f32 rows — and
+  :func:`beam_update` merges and pops.  The JAX package serves these
+  datasets through its XLA branch, which pops first and merges last
+  (``search.py:377-506``); popping at the end of one iteration or at the
+  start of the next is the same search, and the tests hold the two to the
+  same results.  In build mode the pool takes ``beam_update``'s survivors,
+  which leave out candidates already in the beam; those entered the pool
+  when they entered the beam, so the pool is the JAX branch's.
 
-The JAX ``while_loop`` is a Python loop here: its condition (some query
-still popped a node, within ``max_iters``) is read on the host once per
-iteration.  The XLA branch of the JAX function (sharded data, capacities
-above 1024) is not part of this package yet; such calls raise.
+Beams of more than 1024 slots, for any dataset, take the **wide route**:
+the JAX XLA branch ported as it is (pop the first m, expand, score as the
+scored route does, torch sort-merge of beam and candidates, tail
+compaction).  The route follows from the capacity before any launch; a
+kernel that fails raises on either route.
+
+The JAX ``while_loop`` is a Python loop here: its condition is read on the
+host once per iteration.
 """
 
 from __future__ import annotations
@@ -42,6 +60,9 @@ from ...ops import distance as dist_ops
 from ...ops import topk as topk_ops
 from ...ops.kernels.beam_step import (ID_MASK, MAX_WIDTH, VIS_BIT, beam_step,
                                       beam_step_lvq)
+from ...ops.kernels.beam_update import beam_update
+from ...ops.kernels.gather_distance import (gather_score_l2_partial,
+                                            score_rows)
 from ...quantization.lvq import LVQDataset, LVQFullView
 from .packed import PackedLVQNeighborhoods
 
@@ -86,6 +107,40 @@ def _compact_tail_phase(state, queries, b2, run, active_of):
     return (it1, *merged)
 
 
+def _candidate_scorer(data, distance: dist_ops.DistanceType):
+    """Scoring of the scored and wide routes: ``score(ids, q_rows, q2,
+    rows=None)`` -> (B, K) keys, +inf for ids outside ``[0, n)``.
+
+    An L2 ``VectorDataset`` without given rows goes through
+    :func:`gather_score_l2_partial` over its table; everything else through
+    :func:`score_rows` over ``rows`` (or ``data.get_f32`` of the ids)."""
+    table = data.vectors if isinstance(data, VectorDataset) and \
+        distance == dist_ops.DistanceType.L2 else None
+    inf = float("inf")
+
+    def score(ids, q_rows, q2, rows=None):
+        clamped = ids.clamp(0, data.capacity - 1)
+        if rows is None and table is not None:
+            keys = dist_ops.keys_from_l2_partial(
+                gather_score_l2_partial(table, clamped, q_rows), q2)
+        else:
+            if rows is None:
+                rows = data.get_f32(clamped)
+            dots, x2 = score_rows(rows.float().contiguous(), q_rows)
+            keys = dist_ops.keys_from_parts(distance, dots, x2, q2)
+        return torch.where((ids >= 0) & (ids < data.n), keys, inf)
+
+    return score
+
+
+def _beam_rows(data) -> bool:
+    """Datasets whose rows go to the beam-step kernels (f32 / bf16 rows,
+    LVQ codes or their decode); the others take the scored route."""
+    return isinstance(data, (LVQDataset, LVQFullView)) or (
+        isinstance(data, VectorDataset)
+        and data.dtype in (torch.float32, torch.bfloat16))
+
+
 def greedy_search(graph: NeighborGraph,
                   data,
                   queries: torch.Tensor,
@@ -103,12 +158,13 @@ def greedy_search(graph: NeighborGraph,
     """Run lockstep greedy search for a batch of queries.
 
     Args:
-      data: a ``VectorDataset`` (f32 / bf16), an ``LVQDataset`` or an
-        ``LVQFullView``.
+      data: a ``VectorDataset`` (any element type), an ``SQDataset``, an
+        ``LVQDataset`` or an ``LVQFullView``.
       queries: (B, d_pad) tensor on the dataset's device (f32 or bf16
-        scored as given; other dtypes are cast to f32).
+        scored as given by the beam-step kernels; cast to f32 elsewhere).
       entry_ids: (E,) or (B, E) int32 entry points seeded into the beam.
-      window: pop horizon; capacity: beam size (>= window, <= 1024).
+      window: pop horizon; capacity: beam size (>= window; above 1024 the
+        wide route).
       max_iters: iteration bound.
       pool_size: if > 0, track the running top-``pool_size`` of all scored
         candidates (build mode).
@@ -132,17 +188,6 @@ def greedy_search(graph: NeighborGraph,
     m = pop_width
     if window > capacity:
         raise ValueError(f"window {window} > capacity {capacity}")
-    if capacity > MAX_WIDTH:
-        raise ValueError(f"capacity {capacity} > {MAX_WIDTH}: the beam-step "
-                         "kernel takes at most 1024 slots, and the JAX "
-                         "package's XLA search branch is not ported")
-    if not (isinstance(data, (LVQDataset, LVQFullView))
-            or (isinstance(data, VectorDataset)
-                and data.dtype in (torch.float32, torch.bfloat16))):
-        raise ValueError(f"dataset {type(data).__name__} "
-                         f"({getattr(data, 'dtype', None)}): searchable here "
-                         "are float32 / bfloat16 VectorDatasets, "
-                         "LVQDatasets and LVQFullViews")
     if data.n > ID_MASK:
         raise ValueError(f"{data.n} rows: ids must stay below 2^30")
     device = queries.device
@@ -185,18 +230,28 @@ def greedy_search(graph: NeighborGraph,
     v = -(-visited_size // m) * m if visited_size > 0 else 0
     ring0 = torch.full((b, v), -1, dtype=torch.int32, device=device)
 
+    packed_lvq = isinstance(packed, PackedLVQNeighborhoods)
+    if c > MAX_WIDTH:
+        return _wide_search(
+            graph, data, queries.float().contiguous(), beam_ids, beam_keys,
+            (pool_ids0, pool_keys0, ring0), _candidate_scorer(data, distance),
+            score, window=window, max_iters=max_iters, pool_size=p,
+            pop_width=m, packed=packed, tail_frac=tail_frac)
+
     metric = _METRIC_CODES[distance]
     n_data = data.n
-    packed_lvq = isinstance(packed, PackedLVQNeighborhoods)
+    scored = packed is None and not _beam_rows(data)
     # LVQ-8 codes go to beam_step_lvq, packed or not; every other
     # quantized row is decoded to f32 before beam_step
     if packed_lvq:
         lvq8 = packed.bits == 8
     else:
         lvq8 = isinstance(data, LVQDataset) and data.bits == 8
-    if lvq8 or queries.dtype not in (torch.float32, torch.bfloat16):
+    if lvq8 or scored or queries.dtype not in (torch.float32,
+                                                 torch.bfloat16):
         queries = queries.float()
     queries = queries.contiguous()
+    score_cands = _candidate_scorer(data, distance) if scored else None
     if lvq8:
         lvq_mean = data.mean if packed is None else packed.mean
         n_dead = data.padded_dim - data.dim
@@ -209,7 +264,7 @@ def greedy_search(graph: NeighborGraph,
                               beam_ids + torch.where(in_win0, VIS_BIT, 0),
                               -1).to(torch.int32)
 
-    def body(state, q_rows):
+    def body(state, q_rows, q2):
         it, bk, bp, popped, n_pops, pool_ids, pool_keys, ring = state
         rows = q_rows.shape[0]
         has = popped >= 0                                   # (rows, m)
@@ -226,10 +281,16 @@ def greedy_search(graph: NeighborGraph,
             ring[:, col:col + m] = torch.where(has, popped, -1)
             seen = (nbrs[:, :, None] == ring[:, None, :]).any(-1)
             nbrs = torch.where(seen, -1, nbrs)
+        if scored:
+            cand_keys = score_cands(nbrs, q_rows, q2)
+            bk, bp, popped, cand_keys, cand_ids = beam_update(
+                bk, bp, cand_keys, nbrs, window=window, m=m)
+            # the survivors sit in the first m * r columns
+            cand_keys, cand_ids = cand_keys[:, :m * r], cand_ids[:, :m * r]
         # packed: m super-row gathers per query instead of m * r row
         # gathers; rows of masked ids are garbage, masked by id in the
         # kernel
-        if lvq8:
+        elif lvq8:
             if packed_lvq:
                 codes, sc, bi = packed.gather(popped_flat, rows)
             else:
@@ -261,9 +322,10 @@ def greedy_search(graph: NeighborGraph,
         return (it + 1, bk, bp, popped, n_pops, pool_ids, pool_keys, ring)
 
     def run(state, q_rows, thresh):
+        q2 = q_rows.float().square().sum(-1) if scored else None
         while state[0] < max_iters and \
                 int((state[3] >= 0).any(1).sum()) > thresh:
-            state = body(state, q_rows)
+            state = body(state, q_rows, q2)
         return state
 
     state = (0, beam_keys, beam_packed, popped,
@@ -282,6 +344,115 @@ def greedy_search(graph: NeighborGraph,
     if packed is not None and packed.dtype != data.dtype:
         # lossy packed traversal: re-score the final beam against the exact
         # rows and re-sort
+        beam_keys, beam_ids = topk_ops.sort_by_key(score(beam_ids), beam_ids)
+        beam_ids = torch.where(torch.isfinite(beam_keys), beam_ids, -1)
+    return SearchOutput(ids=beam_ids, keys=beam_keys, n_iters=it,
+                        n_pops=n_pops, pool_ids=pool_ids,
+                        pool_keys=pool_keys)
+
+
+def _wide_search(graph, data, queries, beam_ids, beam_keys, pools,
+                 score_cands, score, *, window: int, max_iters: int,
+                 pool_size: int, pop_width: int, packed, tail_frac: int
+                 ) -> SearchOutput:
+    """The wide route: the JAX package's XLA branch (``search.py:377-506``)
+    as it is, for beams above the kernels' 1024 slots.  Each iteration pops
+    the first m unvisited window slots, expands them, scores the
+    candidates (``score_cands``: the scored route's kernels), masks
+    repeats, tracks the pool, and sort-merges beam and candidates with a
+    stable ``torch.sort``.  ``queries`` are f32."""
+    pool_ids0, pool_keys0, ring0 = pools
+    b, c = beam_keys.shape
+    r = graph.max_degree
+    m = pop_width
+    v = ring0.shape[1]
+    track = pool_size > 0
+    device = queries.device
+    iota_c = torch.arange(c, device=device)
+    window_mask = (iota_c < window)[None, :]
+    big = c + 1
+    packed_lvq = isinstance(packed, PackedLVQNeighborhoods)
+    beam_ids = beam_ids.to(torch.int32)
+    beam_vis = torch.zeros((b, c), dtype=torch.int32, device=device)
+
+    def unvisited_mask(keys, vis):
+        return torch.isfinite(keys) & (vis == 0) & window_mask
+
+    def body(state, q_rows, q2):
+        it, beam_ids, beam_keys, beam_vis, n_pops, pool_ids, pool_keys, \
+            ring = state
+        rows = q_rows.shape[0]
+        unvis = unvisited_mask(beam_keys, beam_vis)
+        # the first m unvisited positions (the beam is sorted: the best m)
+        pos_score = torch.where(unvis, iota_c[None, :], big)
+        pos = torch.topk(pos_score, m, dim=1, largest=False).values
+        has = pos < big
+        pos_c = pos.clamp_max(c - 1)
+        popped = torch.gather(beam_ids, 1, pos_c)
+        hit = ((iota_c[None, None, :] == pos_c[:, :, None])
+               & has[:, :, None]).any(1)
+        beam_vis = torch.where(hit, 1, beam_vis)
+        n_pops = n_pops + has.sum(1, dtype=torch.int32)
+
+        popped_flat = popped.clamp_min(0).reshape(-1)
+        nbrs = graph.neighbors(popped_flat).reshape(rows, m * r)
+        nbrs = torch.where(has.repeat_interleave(r, dim=1), nbrs, -1)
+        if v:
+            col = (it * m) % v
+            ring = ring.clone()
+            ring[:, col:col + m] = torch.where(has, popped, -1)
+            seen = (nbrs[:, :, None] == ring[:, None, :]).any(-1)
+            nbrs = torch.where(seen, -1, nbrs)
+        if packed_lvq:
+            vecs = packed.decode(popped_flat, rows)
+        elif packed is not None:
+            vecs = packed[popped_flat.clamp_max(packed.shape[0] - 1)]
+            vecs = vecs.reshape(rows, m * r, packed.shape[2])
+        else:
+            vecs = None
+        cand_keys = score_cands(nbrs, q_rows, q2, rows=vecs)
+        cand_keys = topk_ops.mask_first_duplicates(cand_keys, nbrs)
+        if track:
+            pool_cand_keys = topk_ops.mask_duplicate_ids(cand_keys, nbrs,
+                                                         pool_ids)
+            pool_keys, pool_ids = topk_ops.merge_smallest(
+                pool_keys, pool_ids, pool_cand_keys, nbrs, pool_size)
+
+        # beam dedup + sort-merge insert (ids packed with the visited flag)
+        cand_keys = topk_ops.mask_duplicate_ids(cand_keys, nbrs, beam_ids)
+        all_keys = torch.cat([beam_keys, cand_keys], 1)
+        packed_rows = torch.cat([beam_ids + beam_vis * VIS_BIT, nbrs], 1)
+        s_keys, order = torch.sort(all_keys, dim=1, stable=True)
+        new_packed = torch.gather(packed_rows, 1, order)[:, :c]
+        keep = has.any(1)[:, None]
+        # empty (-1) entries unpack to garbage ids, but their keys stay
+        # +inf; the final extraction restores -1
+        beam_ids = torch.where(keep, new_packed & ID_MASK, beam_ids)
+        beam_vis = torch.where(keep, new_packed >> 30, beam_vis)
+        beam_keys = torch.where(keep, s_keys[:, :c], beam_keys)
+        return (it + 1, beam_ids, beam_keys, beam_vis, n_pops, pool_ids,
+                pool_keys, ring)
+
+    def run(state, q_rows, thresh):
+        q2 = q_rows.square().sum(-1)
+        while state[0] < max_iters and int(unvisited_mask(
+                state[2], state[3]).any(1).sum()) > thresh:
+            state = body(state, q_rows, q2)
+        return state
+
+    state = (0, beam_ids, beam_keys, beam_vis,
+             torch.zeros((b,), dtype=torch.int32, device=device),
+             pool_ids0, pool_keys0, ring0)
+    b2 = b // tail_frac if tail_frac > 1 else 0
+    compact_tail = tail_frac > 1 and b2 >= 8
+    state = run(state, queries, b2 if compact_tail else 0)
+    if compact_tail:
+        state = _compact_tail_phase(
+            state, queries, b2, run,
+            active_of=lambda s: unvisited_mask(s[2], s[3]).any(1))
+    it, beam_ids, beam_keys, _vis, n_pops, pool_ids, pool_keys, _ = state
+    beam_ids = torch.where(torch.isfinite(beam_keys), beam_ids, -1)
+    if packed is not None and packed.dtype != data.dtype:
         beam_keys, beam_ids = topk_ops.sort_by_key(score(beam_ids), beam_ids)
         beam_ids = torch.where(torch.isfinite(beam_keys), beam_ids, -1)
     return SearchOutput(ids=beam_ids, keys=beam_keys, n_iters=it,

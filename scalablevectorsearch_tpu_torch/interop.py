@@ -8,7 +8,10 @@ The state is plain numpy: the dataset rows ``np.asarray(idx.data.vectors)
 be run on one graph.  An LVQ dataset carries across through
 :func:`lvq_from_arrays` (its ``codes``, ``scales``, ``biases``, ``mean``,
 ``n``, ``dim``, ``bits`` and, for two levels, ``res_codes`` /
-``res_scales``) and stands in place of the rows.
+``res_scales``) and stands in place of the rows; an ``SQDataset`` through
+:func:`sq_from_arrays` (its ``codes``, ``scale``, ``bias``, ``n``,
+``dim``).  A float16 / int8 table carries across through
+:func:`dataset_from_array` with ``dtype=``.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from .core.graph import NeighborGraph
 from .index.vamana.entry import build_sampler
 from .index.vamana.index import VamanaIndex
 from .quantization.lvq import LVQDataset, _unpack4
+from .quantization.scalar import SQDataset
 
 
 def dataset_from_array(vectors, *, dtype=None, device="cuda"
@@ -71,12 +75,26 @@ def lvq_from_arrays(codes, scales, biases, mean, *, n: int, dim: int,
         device=device)
 
 
+def sq_from_arrays(codes, scale, bias, *, n: int, dim: int, device="cuda"
+                   ) -> SQDataset:
+    """A JAX ``SQDataset``'s numpy state -> the port's ``SQDataset``.
+
+    ``codes`` are the stored (capacity, d_pad) rows; ``scale`` and ``bias``
+    the global f32 pair.  The norms and code sums are recomputed on the
+    host as ``compress`` computes them, which reproduces the JAX dataset's
+    bit for bit."""
+    codes = np.asarray(codes)
+    return SQDataset.from_codes(codes[:n, :dim], float(scale), float(bias),
+                                capacity=codes.shape[0], device=device)
+
+
 def vamana_from_arrays(vectors, adjacency, degrees, entry_point: int,
                        distance, *, sampler_ids: Optional[np.ndarray] = None,
                        dtype=None, device="cuda") -> VamanaIndex:
     """Build a port :class:`VamanaIndex` over a JAX index's state;
-    ``vectors`` may be an :class:`LVQDataset` (:func:`lvq_from_arrays`)."""
-    if isinstance(vectors, LVQDataset):
+    ``vectors`` may be an :class:`LVQDataset` (:func:`lvq_from_arrays`) or
+    an :class:`SQDataset` (:func:`sq_from_arrays`)."""
+    if isinstance(vectors, (LVQDataset, SQDataset)):
         data = vectors
     else:
         data = dataset_from_array(vectors, dtype=dtype, device=device)

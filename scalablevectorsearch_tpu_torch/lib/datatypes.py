@@ -49,6 +49,15 @@ def torch_dtype(x) -> torch.dtype:
     return _TORCH_DTYPES[name]
 
 
+def numpy_dtype(x) -> np.dtype:
+    """The numpy dtype of the same name as a torch dtype (or of a name or
+    numpy dtype); bfloat16 has none."""
+    name = str(torch_dtype(x)).replace("torch.", "")
+    if name == "bfloat16":
+        raise ValueError("numpy has no bfloat16")
+    return np.dtype(name)
+
+
 def itemsize(dtype) -> int:
     return torch.empty((), dtype=torch_dtype(dtype)).element_size()
 

@@ -130,6 +130,31 @@ def gathered_keys(distance: DistanceType,
     return -dots / denom
 
 
+def keys_from_parts(distance: DistanceType, dots: torch.Tensor,
+                    x2: torch.Tensor, query_norms_sq: torch.Tensor
+                    ) -> torch.Tensor:
+    """(B, R) ``<q, x>`` and ``||x||^2`` (``score_rows``' two outputs) and
+    (B,) ``||q||^2`` -> (B, R) keys, with :func:`gathered_keys`' formulas
+    and clamps."""
+    distance = as_distance(distance)
+    if distance == DistanceType.MIP:
+        return -dots
+    if distance == DistanceType.L2:
+        return (query_norms_sq[:, None] - 2.0 * dots + x2).clamp_min(0.0)
+    denom = query_norms_sq[:, None].clamp_min(1e-30).sqrt() * \
+        x2.clamp_min(1e-30).sqrt()
+    return -dots / denom
+
+
+def keys_from_l2_partial(partial: torch.Tensor,
+                         query_norms_sq: torch.Tensor) -> torch.Tensor:
+    """(B, R) ``||x||^2 - 2 <q, x>`` (``gather_score_l2_partial``) and (B,)
+    ``||q||^2`` -> (B, R) L2 keys ``max(||q||^2 + partial, 0)``.  The sum is
+    rounded in another order than :func:`gathered_keys`'
+    ``q2 - 2 dots + x2``, so keys differ from it at ulp level."""
+    return (query_norms_sq[:, None] + partial).clamp_min(0.0)
+
+
 def value_from_key(distance: DistanceType, keys):
     """Convert internal smaller-is-better keys to public distances."""
     distance = as_distance(distance)

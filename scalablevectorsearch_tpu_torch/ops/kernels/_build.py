@@ -71,3 +71,14 @@ def build(name: str) -> Path:
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build(name)))
+
+
+@functools.lru_cache(maxsize=None)
+def entry_point(library: str, name: str, argtypes: tuple):
+    """The C entry point ``name`` of ``csrc/<library>.cu``'s library, with
+    its argument types set (``ctypes.c_void_p`` for pointers and the
+    stream, ``ctypes.c_int`` for ints); it returns a cudaError_t."""
+    fn = getattr(load_library(library), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn

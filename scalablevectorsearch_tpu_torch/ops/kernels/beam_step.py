@@ -24,7 +24,6 @@ do; against the JAX package, tied keys compare as (key, id) multisets.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -100,11 +99,20 @@ def beam_step_lvq_plain(beam_keys: torch.Tensor, beam_packed: torch.Tensor,
 
 
 def _merge_and_pop(beam_keys, beam_packed, keys, cand_ids, *, window: int,
-                   m: int):
-    """Everything after scoring: dedup, beam-membership mask, merge, pop."""
+                   m: int, merge_pool: bool = False):
+    """Everything after scoring: dedup, beam-membership mask, merge, pop.
+
+    ``merge_pool=False`` (beam_step): a candidate is valid when its id is
+    >= 0, and the (B, K) pool holds every scored candidate in id order with
+    repeats masked.  ``merge_pool=True`` (beam_update): a candidate is
+    valid when its id is >= 0 and its key finite, and the (B, C + K) pool
+    holds only the candidates that enter the merge (in id order, in the
+    first K columns), +inf / -1 elsewhere."""
     b, c = beam_keys.shape
     inf = float("inf")
     valid = cand_ids >= 0
+    if merge_pool:
+        valid = valid & torch.isfinite(keys)
     keys = torch.where(valid, keys, inf)
 
     # within-iteration dedup in id order (invalid ids last)
@@ -121,6 +129,10 @@ def _merge_and_pop(beam_keys, beam_packed, keys, cand_ids, *, window: int,
     beam_ids = torch.where(torch.isfinite(beam_keys), beam_packed & ID_MASK, -1)
     in_beam = (beam_ids[:, :, None] == ids[:, None, :]).any(1)
     keys = torch.where(in_beam, inf, keys)
+    if merge_pool:
+        pool_keys = torch.cat([keys, keys.new_full((b, c), inf)], 1)
+        pool_ids = torch.cat([torch.where(torch.isfinite(keys), ids, -1),
+                              ids.new_full((b, c), -1)], 1)
 
     # candidates by (key, id), then a stable merge behind equal beam keys
     keys, order = torch.sort(keys, dim=1, stable=True)
@@ -196,22 +208,20 @@ def _outputs(beam_keys, k: int, m: int):
 
 
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
-# argument types of the library's C entry points (csrc/beam_step.cu)
+# argument types of the library's C entry points (csrc/beam_step.cu;
+# svt_beam_update is wrapped in beam_update.py)
 _ARGTYPES = {
-    "svt_beam_step": [_PTR, _PTR, _PTR, _I32, _PTR, _PTR, _I32]
-    + [_PTR] * 5 + [_I32] * 8 + [_PTR],
-    "svt_beam_step_lvq": [_PTR] * 13 + [_I32] * 9 + [_PTR],
+    "svt_beam_step": (_PTR, _PTR, _PTR, _I32, _PTR, _PTR, _I32)
+    + (_PTR,) * 5 + (_I32,) * 8 + (_PTR,),
+    "svt_beam_step_lvq": (_PTR,) * 13 + (_I32,) * 9 + (_PTR,),
+    "svt_beam_update": (_PTR,) * 9 + (_I32,) * 5 + (_PTR,),
 }
 
 
-@functools.lru_cache(maxsize=None)
 def _kernel_entry(name: str):
     """A C entry point of the built library, with its argument types."""
     from . import _build
-    fn = getattr(_build.load_library("beam_step"), name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry_point("beam_step", name, _ARGTYPES[name])
 
 
 def _on_cuda(op: str, beam_keys: torch.Tensor) -> bool:

@@ -30,8 +30,10 @@ class Vamana:
               dtype=None, **kwargs) -> "Vamana":
         """Build an index from an (n, d) array, vecs/npy file path, or
         dataset (reference orchestrators/vamana.h:570-600); ``device``
-        defaults to ``"cuda"``.  A compressed dataset builds and serves as
-        it is: ``Vamana.build(params, LVQDataset.compress(x), "l2")``."""
+        defaults to ``"cuda"``.  ``dtype`` stores an array's rows as f32,
+        bf16, float16, int8 or uint8.  A compressed dataset builds and
+        serves as it is: ``Vamana.build(params, SQDataset.compress(x),
+        "l2")``, or ``LVQDataset.compress(x)``."""
         if isinstance(data, str):
             from ..core.io import read_any
             data = read_any(data, dtype=dtype)

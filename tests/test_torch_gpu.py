@@ -195,3 +195,134 @@ def test_lvq_kernel_rejects_what_it_does_not_take(cuda):
     for n_dead in (-1, 128):
         with pytest.raises(ValueError, match="n_dead"):
             call(0, args[0], n_dead=n_dead)
+
+
+# ---------------------------------------------------------------------------
+# The scored route's kernels: beam_update, score_rows, gather_score_l2_partial
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [True, False])
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_beam_update_kernel_matches_plain_exactly(cuda, shape, grid):
+    """The keys are inputs, so tied (grid) and real keys alike give the
+    plain version's five outputs exactly."""
+    from scalablevectorsearch_tpu_torch.ops.kernels import beam_update as bu
+    rng = np.random.default_rng(sum(shape) + grid)
+    _b, c, k, _d, window, m = shape
+    args = chip_smoke.make_update_case(rng, shape, grid)
+    before = bu.beam_update.launches
+    got = bu.beam_update(*args, window=window, m=m)
+    want = bu.beam_update_plain(*args, window=window, m=m)
+    torch.cuda.synchronize()
+    assert bu.beam_update.launches == before + 1
+    assert got[3].shape == (shape[0], c + k)
+    for name, g, w in zip(("keys", "packed", "popped", "pool_keys",
+                           "pool_ids"), got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 50, 256])
+def test_score_rows_kernel_matches_plain(cuda, d):
+    """Exact (grid) inputs give identical dots and norms; d 50 takes the
+    scalar loads."""
+    from scalablevectorsearch_tpu_torch.ops.kernels import (
+        gather_distance as gd)
+    rng = np.random.default_rng(d)
+    rows = torch.from_numpy(chip_smoke.grid_values(rng, (64, 37, d), d))
+    q = torch.from_numpy(chip_smoke.grid_values(rng, (64, d), d))
+    before = gd.score_rows.launches
+    got = gd.score_rows(rows.cuda(), q.cuda())
+    want = gd.score_rows_plain(rows, q)
+    torch.cuda.synchronize()
+    assert gd.score_rows.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 50])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16, torch.int8, torch.uint8])
+def test_gather_score_l2_partial_kernel_matches_plain(cuda, dtype, d):
+    """Exact (grid) tables of every element type give the plain version's
+    partial keys exactly, including ids outside the table (clamped)."""
+    from scalablevectorsearch_tpu_torch.ops.kernels import (
+        gather_distance as gd)
+    rng = np.random.default_rng(d)
+    base = torch.from_numpy(chip_smoke.grid_values(rng, (300, d), d))
+    if dtype in (torch.int8, torch.uint8):
+        base = (base * 32).round().clamp(-127, 127)
+        if dtype == torch.uint8:
+            base = base.abs()
+    table = base.to(dtype).cuda()
+    ids = torch.from_numpy(rng.integers(-3, 310, size=(16, 40)).astype(
+        np.int32)).cuda()
+    q = torch.from_numpy(chip_smoke.grid_values(rng, (16, d), d)).cuda()
+    before = gd.gather_score_l2_partial.launches
+    got = gd.gather_score_l2_partial(table, ids, q)
+    want = gd.gather_score_l2_partial_plain(table, ids, q)
+    torch.cuda.synchronize()
+    assert gd.gather_score_l2_partial.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_scored_kernels_reject_what_they_do_not_take(cuda):
+    from scalablevectorsearch_tpu_torch.ops.kernels import (
+        gather_distance as gd)
+    rows = torch.zeros((4, 8, 32), device="cuda")
+    q = torch.zeros((4, 32), device="cuda")
+    ids = torch.zeros((4, 8), dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        gd.score_rows(rows.half(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        gd.score_rows(rows.transpose(1, 2).contiguous().transpose(1, 2), q)
+    with pytest.raises(ValueError, match="cpu"):
+        gd.score_rows(rows, q.cpu())
+    with pytest.raises(TypeError):
+        gd.gather_score_l2_partial(rows[0].double(), ids, q)
+    with pytest.raises(TypeError):
+        gd.gather_score_l2_partial(rows[0], ids.long(), q)
+
+
+@pytest.mark.gpu
+def test_scored_and_wide_search_on_gpu_match_cpu(cuda):
+    """float16 and SQ-int8 datasets over one graph on the card and on the
+    CPU: recall within 0.02, and the card's searches run the scored
+    route's kernels; a 1100-slot beam takes the wide route there."""
+    from scalablevectorsearch_tpu_torch.ops.kernels import beam_update as bu
+    from scalablevectorsearch_tpu_torch.ops.kernels import (
+        gather_distance as gd)
+    data, queries = svt.generate_test_dataset(2000, 100, 48, seed=7)
+    params = svt.VamanaBuildParameters(graph_max_degree=16, window_size=32,
+                                       max_candidate_pool_size=64,
+                                       prune_to=14)
+    built = svt.Vamana.build(params, data, "l2", device="cpu").index
+    gt = svt.exhaustive_search(data, queries, 10, device="cpu")
+    for kind, scorer in (("float16", gd.gather_score_l2_partial),
+                         ("sq", gd.score_rows)):
+        recalls, ids = {}, {}
+        for device in ("cpu", "cuda"):
+            graph = svt.NeighborGraph(built.graph.adjacency.to(device),
+                                      built.graph.degrees.to(device),
+                                      built.graph.n, built.graph.max_degree)
+            ds = svt.SQDataset.compress(data, device=device) \
+                if kind == "sq" else svt.VectorDataset.from_array(
+                    data, dtype=torch.float16, device=device)
+            index = svt.VamanaIndex(graph, ds, built.entry_point, "l2")
+            index.search_window_size = 16
+            before = (bu.beam_update.launches, scorer.launches)
+            recalls[device] = svt.k_recall_at_n(gt, index.search(queries, 10))
+            launched = (bu.beam_update.launches - before[0],
+                        scorer.launches - before[1])
+            assert (min(launched) > 0) == (device == "cuda"), launched
+            index.search_window_size = 1100
+            before = (bu.beam_update.launches, scorer.launches)
+            ids[device] = index.search(queries, 10).ids
+            assert bu.beam_update.launches == before[0]
+            assert (scorer.launches > before[1]) == (device == "cuda")
+        assert abs(recalls["cuda"] - recalls["cpu"]) <= 0.02, (kind, recalls)
+        same = np.sort(ids["cuda"], 1) == np.sort(ids["cpu"], 1)
+        assert same.mean() >= 0.98, (kind, same.mean())

@@ -165,10 +165,20 @@ def test_bf16_dataset_search_matches_jax():
 
 
 def test_capacity_above_kernel_limit_raises(fixed_graph):
-    _data, queries, _jindex, tindex = fixed_graph
-    tindex.search_window_size = 1100
+    """The beam kernels refuse more than 1024 slots; a search with a larger
+    beam takes the wide route instead and gives the JAX search's ids."""
+    from scalablevectorsearch_tpu_torch.ops.kernels.beam_update import (
+        beam_update)
+    _data, queries, jindex, tindex = fixed_graph
+    beam = torch.full((2, 1100), float("inf"))
+    ids = torch.full((2, 1100), -1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="1024"):
+        beam_update(beam, ids, beam[:, :8], ids[:, :8], window=8, m=2)
+    for index in (jindex, tindex):
+        index.search_window_size = 1100
     try:
-        with pytest.raises(ValueError, match="1024"):
-            tindex.search(queries, 10)
+        want, got = jindex.search(queries, 10), tindex.search(queries, 10)
     finally:
-        tindex.search_window_size = 20
+        jindex.search_window_size = tindex.search_window_size = 20
+    same = np.sort(got.ids, 1) == np.sort(want.ids, 1)
+    assert same.mean() >= 0.98, same.mean()

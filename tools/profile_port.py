@@ -9,14 +9,16 @@ R=32, window 100, pool 300, prune_to 28, alpha 1.1, sampled entries), then
 profiles with ``torch.profiler``:
   - one ``search`` of 5000 queries (k=10) for each serving route: f32 data
     with bf16 packed rows at window 11, LVQ-8 packed and unpacked, and
-    LVQ8x8 packed with its rerank, at window 20;
+    LVQ8x8 packed with its rerank, at window 20; float16 rows unpacked (the
+    scored route) at window 11 and SQ-int8 rows unpacked at window 12;
   - one build round (B 2500, window 100, pool 300, pass-2 alpha) over the
-    f32 rows and over LVQ-8 codes.
+    f32 rows, over LVQ-8 codes and over SQ-int8 codes (the scored route).
 For each it prints the wall time with the profiler on, the device busy
 time (the sum of the device-side events' times: kernels and copies), the
-device's idle share, the
-beam-step kernels' share, and the largest device items.  It exits
-non-zero without a CUDA device.
+device's idle share, the share of the beam-step kernels (beam_step,
+beam_step_lvq, beam_update: one template) and of the scoring kernels
+(score_rows, gather_score_l2_partial), and the largest device items.  It
+exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -60,9 +62,11 @@ def profiled(label: str, fn) -> None:
     if busy <= 0:
         raise RuntimeError(f"{label}: the profiler saw no device time")
     beam = sum(t for key, t, _ in items if "beam_step_kernel" in key)
+    scoring = sum(t for key, t, _ in items if "score_kernel" in key)
     print(f"{label}: wall {wall_ms:.2f} ms (profiler on), device busy "
           f"{busy:.2f} ms, idle {1 - busy / wall_ms:.1%}, beam-step kernels "
-          f"{beam:.3f} ms = {beam / busy:.1%} of busy", flush=True)
+          f"{beam:.3f} ms = {beam / busy:.1%} of busy, scoring kernels "
+          f"{scoring:.3f} ms = {scoring / busy:.1%}", flush=True)
     for key, t, count in sorted(items, key=lambda x: -x[1])[:TOP]:
         print(f"  {t:8.3f} ms {t / busy:6.1%} x{count:<5d} {key[:90]}",
               flush=True)
@@ -110,13 +114,26 @@ def main() -> int:
                  lambda: lvq.search(queries, 10))
         del lvq
 
+    sq8 = svt.SQDataset.compress(data)
+    for label, ds, window in (
+            ("float16 unpacked", svt.VectorDataset.from_array(
+                data, dtype=torch.float16), 11),
+            ("SQ-int8 unpacked", sq8, 12)):
+        scored = VamanaIndex(index.graph, ds, index.entry_point, "l2")
+        scored.enable_entry_sampler()
+        scored.search_window_size = window
+        profiled(f"serving {label} (scored route), window {window}",
+                 lambda: scored.search(queries, 10))
+        del scored
+
     b, window = 2500, params.window_size
     ids = torch.arange(b, dtype=torch.int32, device="cuda")
     valid = torch.ones(b, dtype=torch.bool, device="cuda")
     entry = torch.tensor([index.entry_point], dtype=torch.int32,
                          device="cuda")
     for label, ds in (("f32 rows", index.data),
-                      ("LVQ-8 codes", svt.LVQDataset.compress(data, bits=8))):
+                      ("LVQ-8 codes", svt.LVQDataset.compress(data, bits=8)),
+                      ("SQ-int8 codes (scored route)", sq8)):
         sampler = build_sampler(ds, None, seed=0)
         profiled(f"build round B {b} over {label}", lambda: bmod.build_round(
             index.graph, ds, ids, valid, entry, sampler, None,
