@@ -12,19 +12,26 @@ Phases, one line of detail each (any failure exits non-zero):
      gather_score_l2_partial) for sm_90a from the checkout, one nvcc per
      source, both started together; ptxas registers per kernel instance;
   3. kernels: beam_step's CUDA kernel against its plain PyTorch version on
-     the card, 3 metrics x {f32, bf16} rows at the serving and the build
-     shape, plus median times of both;
+     the card, 3 metrics x {f32, bf16} rows at the serving, the build and
+     the tail (B 418) shape, plus times (below);
   4. kernels, LVQ: beam_step_lvq against beam_step_lvq_plain, 3 metrics x
-     both shapes (n_dead 28 at the serving shape, 0 at the build shape),
+     the three shapes (n_dead 28 when serving, 0 at the build shape),
      exact and real inputs, and against beam_step over the decoded rows;
-     median times and the bound;
-  5. kernels, scored: beam_update against beam_update_plain at the serving
-     and build shapes (tied and real keys: identical outputs);
+     times and the bound;
+  5. kernels, scored: beam_update against beam_update_plain at the three
+     shapes (tied and real keys: identical outputs);
      score_rows against its plain version at (2048, 128, 128) f32;
      gather_score_l2_partial against its plain version from a 100k x 128
      table in f32, float16 and int8, ids with repeats, at (2048, 128);
-     median times, bounds, plain times, and torch.bmm (the dot half of
-     score_rows) as score_rows' library call;
+     times, bounds, plain times, and torch.bmm (the dot half of
+     score_rows) as score_rows' library call.
+     A kernel's time ``ms`` is device time: RAW_LAUNCHES calls of its C
+     entry point back to back between two CUDA events (outputs
+     preallocated, inputs rotated over copies that together exceed twice
+     the L2 cache), median of RAW_WINDOWS windows, with the host's issue
+     time per launch and torch.profiler's device time beside it;
+     ``call_ms`` is one call of the Python wrapper as the search loop pays
+     it;
   6. main path: a 100k x 128 clustered dataset (seed 42), Vamana build
      (R=32, window 100, pool 300, prune_to 28, alpha 1.1, sampled
      entries), exhaustive ground truth, bf16 packed serving of 5000
@@ -55,6 +62,10 @@ its end.  The line before the last is the JSON summary of the five
 kernels (beam_step, beam_step_lvq, beam_update, score_rows,
 gather_score_l2_partial); the last line is ``{"ok": true, "device":
 {...}}``.
+
+    python3 chip_smoke.py --kernels-only
+
+runs phases 1-5 alone and prints every kernel's times by shape.
 """
 
 from __future__ import annotations
@@ -74,6 +85,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "data", "golden", "vamana_reference.json")
 SERVING_SHAPE = (2048, 16, 128, 128, 12, 4)   # B, C, K, d, window, m
 BUILD_SHAPE = (2500, 100, 128, 128, 100, 4)
+# the serving search's compacted tail: a 1672-query batch's last quarter
+TAIL_SHAPE = (418, 16, 128, 128, 12, 4)
+STEP_SHAPES = (("serving", SERVING_SHAPE), ("build", BUILD_SHAPE),
+               ("tail", TAIL_SHAPE))
 WINDOWS = (11, 12, 13, 14, 16, 20, 24, 32, 48, 64, 96, 128)
 # Recall tolerance per golden row.  The cosine row of the reference is
 # sensitive to the build schedule: on the CPU, where the port reproduces the
@@ -82,9 +97,13 @@ WINDOWS = (11, 12, 13, 14, 16, 20, 24, 32, 48, 64, 96, 128)
 # to that measured spread; L2 and MIP are stable and keep +-0.05.
 GOLDEN_TOL = {"L2": 0.05, "MIP": 0.05, "Cosine": 0.10}
 TIMING_REPS = 20
+RAW_LAUNCHES = 50              # raw launches per timing window
+RAW_WINDOWS = 5
+L2_BYTES = 50_000_000          # H100 L2 cache
+SLEEP_CYCLES = 4_000_000       # ~2 ms: longer than queueing one window
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak
 F32_FLOPS_PER_S = 67e12        # H100 SXM fp32 peak outside the tensor cores
-LVQ_DEAD = {"serving": 28, "build": 0}   # n_dead per shape
+LVQ_DEAD = {"serving": 28, "build": 0, "tail": 28}   # n_dead per shape
 SCORE_SHAPE = (2048, 128, 128)          # B, K, d of the scoring kernels
 TABLE_ROWS = 100_000
 WIDE_CAPACITY = 1280
@@ -185,6 +204,9 @@ def make_case(rng, shape, grid, query_dtype=torch.float32):
 
 
 def median_ms(fn, reps: int = TIMING_REPS) -> float:
+    """One CUDA event pair around one call of ``fn``, median of ``reps``:
+    the time a caller pays for one call of a Python wrapper, the wrapper's
+    host work included (``call_ms``)."""
     for _ in range(3):
         fn()
     times = []
@@ -197,6 +219,83 @@ def median_ms(fn, reps: int = TIMING_REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def input_sets(args: list) -> list:
+    """``args`` and enough device copies of it that the sets together
+    exceed twice the L2 cache, so that no launch finds its inputs there."""
+    n = max(2, -(-2 * L2_BYTES // nbytes(*args)))
+    return [args] + [[t.clone() for t in args] for _ in range(n - 1)]
+
+
+def time_raw(entry, args: list, make_out, make_raw) -> dict:
+    """:func:`kernel_ms` over :func:`input_sets` of ``args``:
+    ``make_out(set)`` preallocates a set's outputs, ``make_raw(set, out)``
+    gives the entry point's C arguments."""
+    sets = input_sets(args)
+    outs = [make_out(a) for a in sets]
+    return kernel_ms(entry, [make_raw(a, o) for a, o in zip(sets, outs)])
+
+
+def kernel_ms(entry, raw_args: list) -> dict:
+    """Device time of one kernel: ``entry`` (a C entry point of a built
+    library) is called with each tuple of ``raw_args`` in turn (raw
+    pointers and ints; outputs preallocated), RAW_LAUNCHES times back to
+    back between two CUDA events; ``ms`` is the elapsed time over the
+    count, the median of RAW_WINDOWS such windows.  A sleep kernel ahead
+    of the start event holds the device while the host queues the window's
+    launches, so ``ms`` is device time even where the host issues more
+    slowly than the kernel runs.  ``issue_ms`` is the host's time to issue
+    one raw launch; ``host_bound`` says it is not well below ``ms`` (a
+    caller launching one at a time would keep the device waiting).
+    ``profiler_ms``: the mean device time per launch that torch.profiler
+    reports for the same launches (a cross-check)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n = len(raw_args)
+    err = 0
+    for a in raw_args:                        # warm up
+        err |= entry(*a)
+    torch.cuda.synchronize()
+    windows, issue = [], []
+    for _ in range(RAW_WINDOWS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        for i in range(RAW_LAUNCHES):
+            err |= entry(*raw_args[i % n])
+        issue.append((time.perf_counter() - t0) * 1e3 / RAW_LAUNCHES)
+        end.record()
+        end.synchronize()
+        windows.append(start.elapsed_time(end) / RAW_LAUNCHES)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(RAW_LAUNCHES):
+            err |= entry(*raw_args[i % n])
+        torch.cuda.synchronize()
+    if err:
+        raise RuntimeError(f"kernel launch failed: CUDA error {err}")
+    dev = [(getattr(e, "self_device_time_total", 0.0)
+            or getattr(e, "self_cuda_time_total", 0.0), e.count)
+           for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    dev = [(t, c) for t, c in dev if t > 0]
+    top = max(dev, default=(0.0, 1))
+    ms, issue_ms = statistics.median(windows), statistics.median(issue)
+    return {"ms": ms, "issue_ms": issue_ms,
+            "profiler_ms": top[0] / 1e3 / max(top[1], 1),
+            "host_bound": issue_ms > 0.5 * ms, "input_sets": n}
+
+
+def describe(t: dict) -> str:
+    """The timing fields of one kernel case, for the log."""
+    return (f"device {t['ms']:.4f} ms/launch (profiler "
+            f"{t['profiler_ms']:.4f}, host issue {t['issue_ms']:.4f}"
+            f"{' HOST-BOUND' if t['host_bound'] else ''}, "
+            f"{t['input_sets']} input sets), wrapper call {t['call_ms']:.4f}"
+            f" ms, plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} "
+            f"ms by {t['bound_by']} ({t['bytes']} bytes, {t['flops']} "
+            f"flops) = {t['bound_ms'] / t['ms']:.1%} of it")
 
 
 def make_lvq_case(rng, shape, n_dead: int, grid: bool):
@@ -249,12 +348,16 @@ def make_lvq_case(rng, shape, n_dead: int, grid: bool):
 def step_bound(args, m: int, flops_per_value: int) -> dict:
     """Least time for one beam step on these inputs: every input read once
     and the five outputs written once, over the HBM peak, against the f32
-    operations on the (B, K, d) row block over the f32 peak."""
-    beam_keys, rows = args[0], args[2]
+    operations on the row block over the f32 peak.  The rows of invalid
+    candidates (id -1) do not count: no output depends on them."""
+    beam_keys, rows, cand_ids = args[0], args[2], args[-2]
     b, c = beam_keys.shape
     k = rows.shape[1]
-    return bound_of(nbytes(*args) + b * (c * 8 + m * 4 + k * 8),
-                    flops_per_value * rows.numel())
+    dead_rows = int((cand_ids < 0).sum())
+    row_values = rows.shape[2]
+    return bound_of(nbytes(*args) + b * (c * 8 + m * 4 + k * 8)
+                    - dead_rows * row_values * rows.element_size(),
+                    flops_per_value * (b * k - dead_rows) * row_values)
 
 
 def phase_kernels() -> dict:
@@ -266,7 +369,7 @@ def phase_kernels() -> dict:
     from scalablevectorsearch_tpu_torch.ops.kernels import beam_step as bs
     rng = np.random.default_rng(0)
     max_err, timings, failures, swapped, rows = 0.0, {}, [], 0, 0
-    for label, shape in (("serving", SERVING_SHAPE), ("build", BUILD_SHAPE)):
+    for label, shape in STEP_SHAPES:
         _B, _C, _K, _d, window, m = shape
         for vdt in (torch.float32, torch.bfloat16):
             tol = 1e-5 if vdt == torch.float32 else 1e-3
@@ -303,22 +406,22 @@ def phase_kernels() -> dict:
             args = make_case(rng, shape, grid=False)
             args[2] = args[2].to(vdt)
             kw = dict(metric=0, window=window, m=m)
-            ms = median_ms(lambda: bs.beam_step(*args, **kw))
-            plain_ms = median_ms(lambda: bs.beam_step_plain(*args, **kw))
+            t = time_raw(
+                bs._kernel_entry("svt_beam_step"), args,
+                lambda a: bs._outputs(a[0], a[2].shape[1], m),
+                lambda a, o: bs.beam_step_args(*a, o, **kw))
+            t["call_ms"] = median_ms(lambda: bs.beam_step(*args, **kw))
+            t["plain_ms"] = median_ms(lambda: bs.beam_step_plain(*args, **kw))
             # per value: a multiply-add for the dot and one for the norm
-            bound = step_bound(args, m, 4)
+            t.update(step_bound(args, m, 4))
             timings[f"{label}_{'bf16' if vdt == torch.bfloat16 else 'f32'}"] \
-                = {"ms": ms, "plain_ms": plain_ms, **bound}
-            log(f"kernels: beam_step {label} B,C,K,d={shape[:4]} "
-                f"{vdt} L2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                f"(median of {TIMING_REPS}); bound {bound['bound_ms']:.4f} "
-                f"ms by {bound['bound_by']} ({bound['bytes']} bytes, "
-                f"{bound['flops']} flops) = {bound['bound_ms'] / ms:.1%} "
-                f"of it")
+                = t
+            log(f"kernels: beam_step {label} B,C,K,d={shape[:4]} {vdt} L2: "
+                + describe(t))
     if failures:
         raise AssertionError("beam_step kernel vs plain: "
                              + "; ".join(failures))
-    log(f"kernels: beam_step matches plain: 2 shapes x 2 dtypes x 3 "
+    log(f"kernels: beam_step matches plain: 3 shapes x 2 dtypes x 3 "
         f"metrics; grid inputs identical, real inputs max_abs_err "
         f"{max_err:.3g}, near-tie rows with other ids or pops {swapped} of "
         f"{rows}")
@@ -337,7 +440,7 @@ def phase_kernels_lvq() -> dict:
     rng = np.random.default_rng(1)
     max_err, timings, failures = 0.0, {}, []
     swapped = swapped_dec = rows = 0
-    for label, shape in (("serving", SERVING_SHAPE), ("build", BUILD_SHAPE)):
+    for label, shape in STEP_SHAPES:
         _B, _C, _K, d, window, m = shape
         n_dead = LVQ_DEAD[label]
         for metric in (0, 1, 2):
@@ -384,19 +487,20 @@ def phase_kernels_lvq() -> dict:
                                 "rows")
         args = make_lvq_case(rng, shape, n_dead, grid=False)
         kw = dict(metric=0, window=window, m=m, n_dead=n_dead)
-        ms = median_ms(lambda: bs.beam_step_lvq(*args, **kw))
-        plain_ms = median_ms(lambda: bs.beam_step_lvq_plain(*args, **kw))
+        t = time_raw(
+            bs._kernel_entry("svt_beam_step_lvq"), args,
+            lambda a: bs._outputs(a[0], a[2].shape[1], m),
+            lambda a, o: bs.beam_step_lvq_args(*a, o, **kw))
+        t["call_ms"] = median_ms(lambda: bs.beam_step_lvq(*args, **kw))
+        t["plain_ms"] = median_ms(lambda: bs.beam_step_lvq_plain(*args, **kw))
         # per value: decode (add, multiply, add) + the two multiply-adds
-        bound = step_bound(args, m, 7)
-        timings[label] = {"ms": ms, "plain_ms": plain_ms, **bound}
-        log(f"kernels: beam_step_lvq {label} B,C,K,d={shape[:4]} "
-            f"n_dead {n_dead} L2: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms (median of {TIMING_REPS}); bound {bound['bound_ms']:.4f} "
-            f"ms by {bound['bound_by']} ({bound['bytes']} bytes, "
-            f"{bound['flops']} flops) = {bound['bound_ms'] / ms:.1%} of it")
+        t.update(step_bound(args, m, 7))
+        timings[label] = t
+        log(f"kernels: beam_step_lvq {label} B,C,K,d={shape[:4]} n_dead "
+            f"{n_dead} L2: " + describe(t))
     if failures:
         raise AssertionError("beam_step_lvq kernel: " + "; ".join(failures))
-    log(f"kernels: beam_step_lvq matches plain: 2 shapes x 3 metrics; exact "
+    log(f"kernels: beam_step_lvq matches plain: 3 shapes x 3 metrics; exact "
         f"inputs identical, real inputs max_abs_err {max_err:.3g}, near-tie "
         f"rows with other ids or pops {swapped} of {rows}; vs beam_step on "
         f"decoded rows {swapped_dec} of {rows}")
@@ -674,6 +778,7 @@ def phase_kernels_scored() -> dict:
     within rtol 1e-5 (atol 1e-5 of the values' scale): the sums run in
     another order.  Median times, plain times, bounds, and torch.bmm for
     the dot half of score_rows."""
+    from scalablevectorsearch_tpu_torch.ops.kernels import beam_step as bs
     from scalablevectorsearch_tpu_torch.ops.kernels import beam_update as bu
     from scalablevectorsearch_tpu_torch.ops.kernels import (
         gather_distance as gd)
@@ -681,7 +786,7 @@ def phase_kernels_scored() -> dict:
     failures, out = [], {}
 
     timings = {}
-    for label, shape in (("serving", SERVING_SHAPE), ("build", BUILD_SHAPE)):
+    for label, shape in STEP_SHAPES:
         B, C, K, _d, window, m = shape
         kw = dict(window=window, m=m)
         for grid in (True, False):
@@ -691,15 +796,17 @@ def phase_kernels_scored() -> dict:
             torch.cuda.synchronize()
             if not all(torch.equal(g, w) for g, w in zip(got, want)):
                 failures.append(f"beam_update {label} grid={grid} differs")
-        ms = median_ms(lambda: bu.beam_update(*args, **kw))
-        plain_ms = median_ms(lambda: bu.beam_update_plain(*args, **kw))
-        bound = bound_of(nbytes(*args) + B * (C * 8 + m * 4 + (C + K) * 8),
-                         0)
-        timings[label] = {"ms": ms, "plain_ms": plain_ms, **bound}
-        log(f"kernels: beam_update {label} B,C,K={shape[:3]}: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of "
-            f"{TIMING_REPS}); bound {bound['bound_ms']:.4f} ms by bytes "
-            f"({bound['bytes']} bytes) = {bound['bound_ms'] / ms:.1%} of it")
+        t = time_raw(
+            bs._kernel_entry("svt_beam_update"), args,
+            lambda a: bs._outputs(a[0], C + K, m),
+            lambda a, o: bu.beam_update_args(*a, o, **kw))
+        t["call_ms"] = median_ms(lambda: bu.beam_update(*args, **kw))
+        t["plain_ms"] = median_ms(lambda: bu.beam_update_plain(*args, **kw))
+        t.update(bound_of(nbytes(*args) + B * (C * 8 + m * 4 + (C + K) * 8),
+                          0))
+        timings[label] = t
+        log(f"kernels: beam_update {label} B,C,K={shape[:3]}: "
+            + describe(t))
     out["beam_update"] = {"max_abs_err": 0.0, "timings": timings}
 
     B, K, d = SCORE_SHAPE
@@ -723,19 +830,22 @@ def phase_kernels_scored() -> dict:
             if not torch.allclose(g, w, rtol=1e-5,
                                   atol=1e-5 * float(w.abs().max())):
                 failures.append(f"score_rows grid={grid} {name}: {err:.3g}")
-    ms = median_ms(lambda: gd.score_rows(rows, q))
-    plain_ms = median_ms(lambda: gd.score_rows_plain(rows, q))
-    bmm_ms = median_ms(lambda: torch.bmm(rows, q[:, :, None]))
+    t = time_raw(gd._kernel_entry("svt_score_rows"), [rows, q],
+                 lambda a: (torch.empty((B, K), device="cuda"),
+                            torch.empty((B, K), device="cuda")),
+                 lambda a, o: gd.score_rows_args(*a, o))
+    t["call_ms"] = median_ms(lambda: gd.score_rows(rows, q))
+    t["plain_ms"] = median_ms(lambda: gd.score_rows_plain(rows, q))
+    bmm_sets = input_sets([rows, q])
+    bmm_ms = median_ms(lambda: [torch.bmm(r, qq[:, :, None])
+                                for r, qq in bmm_sets]) / len(bmm_sets)
     # per value: a multiply-add for the dot and one for the norm
-    bound = bound_of(nbytes(rows, q) + 2 * B * K * 4, 4 * rows.numel())
+    t.update(bound_of(nbytes(rows, q) + 2 * B * K * 4, 4 * rows.numel()))
     out["score_rows"] = {"max_abs_err": max_err, "library_ms": bmm_ms,
-                         "timings": {"f32": {"ms": ms, "plain_ms": plain_ms,
-                                             **bound}}}
-    log(f"kernels: score_rows B,K,d={SCORE_SHAPE} f32: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, torch.bmm (dots only) {bmm_ms:.4f} ms; "
-        f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
-        f"({bound['bytes']} bytes) = {bound['bound_ms'] / ms:.1%} of it; "
-        f"real inputs max_abs_err {max_err:.3g}")
+                         "timings": {"f32": t}}
+    log(f"kernels: score_rows B,K,d={SCORE_SHAPE} f32: " + describe(t)
+        + f"; torch.bmm (dots only) {bmm_ms:.4f} ms per call over "
+        f"{len(bmm_sets)} input sets; real inputs max_abs_err {max_err:.3g}")
 
     max_err, timings = 0.0, {}
     ids = rng.integers(0, TABLE_ROWS, size=(B, K)).astype(np.int32)
@@ -769,21 +879,24 @@ def phase_kernels_scored() -> dict:
                                 f"grid={grid}: {err:.3g}")
             if grid:
                 continue
-            ms = median_ms(lambda: gd.gather_score_l2_partial(table, ids, q))
-            plain_ms = median_ms(
+            t = time_raw(
+                gd._kernel_entry("svt_gather_score_l2_partial"),
+                [table, ids, q],
+                lambda a: torch.empty((B, K), device="cuda"),
+                lambda a, o: gd.gather_score_l2_partial_args(*a, o))
+            t["call_ms"] = median_ms(
+                lambda: gd.gather_score_l2_partial(table, ids, q))
+            t["plain_ms"] = median_ms(
                 lambda: gd.gather_score_l2_partial_plain(table, ids, q))
             # the rows this run's ids need (each distinct row once), the
             # ids, the queries and the output
             row_bytes = d * table.element_size()
-            bound = bound_of(n_unique * row_bytes + nbytes(ids, q)
-                             + B * K * 4, 4 * B * K * d)
-            timings[name] = {"ms": ms, "plain_ms": plain_ms, **bound}
+            t.update(bound_of(n_unique * row_bytes + nbytes(ids, q)
+                              + B * K * 4, 4 * B * K * d))
+            timings[name] = t
             log(f"kernels: gather_score_l2_partial {name} table "
                 f"{TABLE_ROWS}x{d}, ids ({B}, {K}) ({n_unique} distinct): "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
-                f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
-                f"({bound['bytes']} bytes) = {bound['bound_ms'] / ms:.1%} of "
-                "it")
+                + describe(t))
     out["gather_score_l2_partial"] = {"max_abs_err": max_err,
                                       "timings": timings}
     if failures:
@@ -909,26 +1022,39 @@ def kernel_entry(name: str, replaces: str, launches: int, kern: dict,
                  shape: str, build_s: float,
                  source: str = "beam_step.cu") -> dict:
     """One kernel's entry of the summary line: times and bound at the main
-    path's shape ``shape``; every shape's numbers under ``ms_by_shape``.
-    ``library_ms`` is one PyTorch call computing the same function, where
-    there is one (none scores, dedups, merges and pops)."""
+    path's shape ``shape`` (``ms``: device time per raw launch;
+    ``call_ms``: one call of the Python wrapper, its host work included);
+    every shape's numbers under ``ms_by_shape``.  ``library_ms`` is one
+    PyTorch call computing the same function, where there is one (none
+    scores, dedups, merges and pops)."""
     t = kern["timings"][shape]
     return {"name": name, "route": "cuda",
             "source": f"scalablevectorsearch_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches,
             "max_abs_err": kern["max_abs_err"], "ms": t["ms"],
+            "call_ms": t["call_ms"], "issue_ms": t["issue_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": kern.get("library_ms"), "build_s": build_s,
             "ms_by_shape": kern["timings"]}
 
 
-def main() -> int:
+def main(argv: list) -> int:
     device = phase_device()
     build_s = phase_build()
     kern = phase_kernels()
     kern_lvq = phase_kernels_lvq()
     kern_scored = phase_kernels_scored()
+    if argv == ["--kernels-only"]:
+        # phases 1-5 only: the kernels' checks and times, for comparing two
+        # versions of the sources in one run on one card
+        log(json.dumps({"kernels_only": {
+            "beam_step": kern["timings"], "beam_step_lvq": kern_lvq["timings"],
+            **{name: k["timings"] for name, k in kern_scored.items()}}}))
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
+    if argv:
+        raise SystemExit(f"chip_smoke: unknown arguments {argv}")
     main_path = phase_main_path()
     main_launches = main_path["launches"]
     lvq_path = phase_lvq_path(main_path)
@@ -957,4 +1083,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -196,15 +196,16 @@ def _check(op, beam_keys, beam_packed, rows, cand_ids, queries, metric,
         raise ValueError(f"{op}: metric={metric}, window={window}, m={m}")
 
 
-def _outputs(beam_keys, k: int, m: int):
-    """The five output tensors, allocated on the beam's device."""
+def _outputs(beam_keys, pool_width: int, m: int):
+    """The five output tensors, allocated on the beam's device; the pool
+    is (B, pool_width)."""
     b, c = beam_keys.shape
     dev = beam_keys.device
     return (torch.empty((b, c), dtype=torch.float32, device=dev),
             torch.empty((b, c), dtype=torch.int32, device=dev),
             torch.empty((b, m), dtype=torch.int32, device=dev),
-            torch.empty((b, k), dtype=torch.float32, device=dev),
-            torch.empty((b, k), dtype=torch.int32, device=dev))
+            torch.empty((b, pool_width), dtype=torch.float32, device=dev),
+            torch.empty((b, pool_width), dtype=torch.int32, device=dev))
 
 
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
@@ -238,6 +239,39 @@ def _launched(op: str, err: int) -> None:
         raise RuntimeError(f"{op} kernel launch failed: CUDA error {err}")
 
 
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def beam_step_args(beam_keys, beam_packed, vecs, cand_ids, queries, out, *,
+                   metric: int, window: int, m: int) -> tuple:
+    """The C arguments of ``svt_beam_step`` for checked CUDA tensors and
+    the five preallocated outputs ``out`` (also used to time the raw
+    kernel)."""
+    b, c = beam_keys.shape
+    k, d = vecs.shape[1], vecs.shape[2]
+    vec4 = d % 4 == 0 and vecs.data_ptr() % (4 * vecs.element_size()) == 0
+    return (beam_keys.data_ptr(), beam_packed.data_ptr(), vecs.data_ptr(),
+            int(vecs.dtype == torch.bfloat16), cand_ids.data_ptr(),
+            queries.data_ptr(), int(queries.dtype == torch.bfloat16),
+            *(t.data_ptr() for t in out), b, c, k, d, metric, window, m,
+            int(vec4), _stream(beam_keys))
+
+
+def beam_step_lvq_args(beam_keys, beam_packed, codes, scales, biases, mean,
+                       cand_ids, queries, out, *, metric: int, window: int,
+                       m: int, n_dead: int) -> tuple:
+    """The C arguments of ``svt_beam_step_lvq``, as :func:`beam_step_args`."""
+    b, c = beam_keys.shape
+    k, d = codes.shape[1], codes.shape[2]
+    vec16 = d % 16 == 0 and codes.data_ptr() % 16 == 0
+    return (beam_keys.data_ptr(), beam_packed.data_ptr(), codes.data_ptr(),
+            scales.data_ptr(), biases.data_ptr(), mean.data_ptr(),
+            cand_ids.data_ptr(), queries.data_ptr(),
+            *(t.data_ptr() for t in out), b, c, k, d, metric, window, m,
+            n_dead, int(vec16), _stream(beam_keys))
+
+
 def beam_step(beam_keys: torch.Tensor, beam_packed: torch.Tensor,
               vecs: torch.Tensor, cand_ids: torch.Tensor,
               queries: torch.Tensor, *, metric: int, window: int, m: int):
@@ -247,7 +281,9 @@ def beam_step(beam_keys: torch.Tensor, beam_packed: torch.Tensor,
       beam_keys: (B, C) f32 sorted ascending, +inf = empty slot.
       beam_packed: (B, C) int32, ``id | visited << 30``.
       vecs: (B, K, d) gathered candidate rows (f32 or bf16).
-      cand_ids: (B, K) int32 candidate ids below 2^30, -1 = invalid.
+      cand_ids: (B, K) int32 candidate ids below 2^30, -1 = invalid.  An
+        id at or above 2^30 would collide with the visited bit: the kernel
+        traps, and the next synchronisation raises.
       queries: (B, d) query block (f32 or bf16).
       metric: 0=L2, 1=MIP, 2=cosine.
       window: pop horizon; m: pop width.
@@ -262,20 +298,10 @@ def beam_step(beam_keys: torch.Tensor, beam_packed: torch.Tensor,
     if vecs.dtype not in _VALUE_DTYPES or queries.dtype not in _VALUE_DTYPES:
         raise TypeError(f"beam_step: vecs {vecs.dtype} / queries "
                         f"{queries.dtype} must be float32 or bfloat16")
-    # ids at or above 2^30 would collide with the visited bit; checked on
-    # the device without a host round trip (a failure raises at the next
-    # synchronisation)
-    torch._assert_async((cand_ids < VIS_BIT).all())
-    b, c = beam_keys.shape
-    k, d = vecs.shape[1], vecs.shape[2]
-    out = _outputs(beam_keys, k, m)
-    vec4 = d % 4 == 0 and vecs.data_ptr() % (4 * vecs.element_size()) == 0
-    err = _kernel_entry("svt_beam_step")(
-        beam_keys.data_ptr(), beam_packed.data_ptr(), vecs.data_ptr(),
-        int(vecs.dtype == torch.bfloat16), cand_ids.data_ptr(),
-        queries.data_ptr(), int(queries.dtype == torch.bfloat16),
-        *(t.data_ptr() for t in out), b, c, k, d, metric, window, m,
-        int(vec4), torch.cuda.current_stream(beam_keys.device).cuda_stream)
+    out = _outputs(beam_keys, vecs.shape[1], m)
+    err = _kernel_entry("svt_beam_step")(*beam_step_args(
+        beam_keys, beam_packed, vecs, cand_ids, queries, out, metric=metric,
+        window=window, m=m))
     _launched("beam_step", err)
     beam_step.launches += 1
     return out
@@ -324,16 +350,10 @@ def beam_step_lvq(beam_keys: torch.Tensor, beam_packed: torch.Tensor,
                         f"float32, got {tuple(mean.shape)} {mean.dtype}")
     if not 0 <= n_dead < d:
         raise ValueError(f"beam_step_lvq: n_dead={n_dead} outside [0, {d})")
-    torch._assert_async((cand_ids < VIS_BIT).all())
-    c = beam_keys.shape[1]
     out = _outputs(beam_keys, k, m)
-    vec16 = d % 16 == 0 and codes.data_ptr() % 16 == 0
-    err = _kernel_entry("svt_beam_step_lvq")(
-        beam_keys.data_ptr(), beam_packed.data_ptr(), codes.data_ptr(),
-        scales.data_ptr(), biases.data_ptr(), mean.data_ptr(),
-        cand_ids.data_ptr(), queries.data_ptr(),
-        *(t.data_ptr() for t in out), b, c, k, d, metric, window, m, n_dead,
-        int(vec16), torch.cuda.current_stream(beam_keys.device).cuda_stream)
+    err = _kernel_entry("svt_beam_step_lvq")(*beam_step_lvq_args(
+        beam_keys, beam_packed, codes, scales, biases, mean, cand_ids,
+        queries, out, metric=metric, window=window, m=m, n_dead=n_dead))
     _launched("beam_step_lvq", err)
     beam_step_lvq.launches += 1
     return out

@@ -24,8 +24,8 @@ from __future__ import annotations
 
 import torch
 
-from .beam_step import (MAX_WIDTH, VIS_BIT, _kernel_entry, _launched,
-                        _merge_and_pop, _on_cuda)
+from .beam_step import (MAX_WIDTH, _kernel_entry, _launched,
+                        _merge_and_pop, _on_cuda, _outputs, _stream)
 
 
 def beam_update_plain(beam_keys: torch.Tensor, beam_packed: torch.Tensor,
@@ -71,6 +71,17 @@ def _check(beam_keys, beam_packed, cand_keys, cand_ids, window: int, m: int):
         raise ValueError(f"beam_update: window={window}, m={m}")
 
 
+def beam_update_args(beam_keys, beam_packed, cand_keys, cand_ids, out, *,
+                     window: int, m: int) -> tuple:
+    """The C arguments of ``svt_beam_update`` for checked CUDA tensors and
+    the five preallocated outputs ``out``, pool (B, C + K) (also used to
+    time the raw kernel)."""
+    b, c = beam_keys.shape
+    return (beam_keys.data_ptr(), beam_packed.data_ptr(), cand_keys.data_ptr(),
+            cand_ids.data_ptr(), *(t.data_ptr() for t in out), b, c,
+            cand_keys.shape[1], window, m, _stream(beam_keys))
+
+
 def beam_update(beam_keys: torch.Tensor, beam_packed: torch.Tensor,
                 cand_keys: torch.Tensor, cand_ids: torch.Tensor, *,
                 window: int, m: int):
@@ -80,7 +91,8 @@ def beam_update(beam_keys: torch.Tensor, beam_packed: torch.Tensor,
       beam_keys: (B, C) f32 sorted ascending, +inf = empty slot.
       beam_packed: (B, C) int32, ``id | visited << 30``.
       cand_keys: (B, K) f32 candidate keys, +inf = invalid.
-      cand_ids: (B, K) int32 candidate ids below 2^30, -1 = invalid.
+      cand_ids: (B, K) int32 candidate ids below 2^30, -1 = invalid (an
+        id at or above 2^30 traps in the kernel).
       window: pop horizon; m: pop width.
 
     Returns: as :func:`beam_update_plain`.
@@ -93,19 +105,9 @@ def beam_update(beam_keys: torch.Tensor, beam_packed: torch.Tensor,
                     ("cand_keys", cand_keys), ("cand_ids", cand_ids)):
         if not t.is_contiguous():
             raise ValueError(f"beam_update: {name} must be contiguous")
-    torch._assert_async((cand_ids < VIS_BIT).all())
-    b, c = beam_keys.shape
-    k = cand_keys.shape[1]
-    dev = beam_keys.device
-    out = (torch.empty((b, c), dtype=torch.float32, device=dev),
-           torch.empty((b, c), dtype=torch.int32, device=dev),
-           torch.empty((b, m), dtype=torch.int32, device=dev),
-           torch.empty((b, c + k), dtype=torch.float32, device=dev),
-           torch.empty((b, c + k), dtype=torch.int32, device=dev))
-    err = _kernel_entry("svt_beam_update")(
-        beam_keys.data_ptr(), beam_packed.data_ptr(), cand_keys.data_ptr(),
-        cand_ids.data_ptr(), *(t.data_ptr() for t in out), b, c, k, window,
-        m, torch.cuda.current_stream(dev).cuda_stream)
+    out = _outputs(beam_keys, beam_keys.shape[1] + cand_keys.shape[1], m)
+    err = _kernel_entry("svt_beam_update")(*beam_update_args(
+        beam_keys, beam_packed, cand_keys, cand_ids, out, window=window, m=m))
     _launched("beam_update", err)
     beam_update.launches += 1
     return out

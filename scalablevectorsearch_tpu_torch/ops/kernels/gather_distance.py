@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from .beam_step import _launched
+from .beam_step import _launched, _stream
 
 MAX_DIM = 8192          # keeps the query's shared memory under 48 KB
 # table element type -> the kernel's type code
@@ -90,6 +90,25 @@ def _vec16(t: torch.Tensor, d: int) -> int:
     return int(d % per == 0 and t.data_ptr() % 16 == 0)
 
 
+def score_rows_args(rows, queries, out) -> tuple:
+    """The C arguments of ``svt_score_rows`` for checked CUDA tensors and
+    the preallocated (dots, x2) ``out`` (also used to time the raw
+    kernel)."""
+    b, k, d = rows.shape
+    return (rows.data_ptr(), queries.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), b, k, d, _vec16(rows, d), _stream(rows))
+
+
+def gather_score_l2_partial_args(table, ids, queries, out) -> tuple:
+    """The C arguments of ``svt_gather_score_l2_partial``, as
+    :func:`score_rows_args`."""
+    n, d = table.shape
+    b, k = ids.shape
+    return (table.data_ptr(), _TABLE_DTYPES[table.dtype], ids.data_ptr(), n,
+            queries.data_ptr(), out.data_ptr(), b, k, d, _vec16(table, d),
+            _stream(table))
+
+
 def score_rows(rows: torch.Tensor, queries: torch.Tensor):
     """(dots, x2) of pre-gathered rows against their queries.
 
@@ -114,10 +133,8 @@ def score_rows(rows: torch.Tensor, queries: torch.Tensor):
                          f"[1, {MAX_DIM}] required")
     dots = torch.empty((b, k), dtype=torch.float32, device=rows.device)
     x2 = torch.empty_like(dots)
-    err = _kernel_entry("svt_score_rows")(
-        rows.data_ptr(), queries.data_ptr(), dots.data_ptr(), x2.data_ptr(),
-        b, k, d, _vec16(rows, d),
-        torch.cuda.current_stream(rows.device).cuda_stream)
+    err = _kernel_entry("svt_score_rows")(*score_rows_args(rows, queries,
+                                                           (dots, x2)))
     _launched("score_rows", err)
     score_rows.launches += 1
     return dots, x2
@@ -161,9 +178,7 @@ def gather_score_l2_partial(table: torch.Tensor, ids: torch.Tensor,
                          f"[1, {MAX_DIM}] and N={n} < 2^31 required")
     out = torch.empty((b, k), dtype=torch.float32, device=table.device)
     err = _kernel_entry("svt_gather_score_l2_partial")(
-        table.data_ptr(), _TABLE_DTYPES[table.dtype], ids.data_ptr(), n,
-        queries.data_ptr(), out.data_ptr(), b, k, d, _vec16(table, d),
-        torch.cuda.current_stream(table.device).cuda_stream)
+        *gather_score_l2_partial_args(table, ids, queries, out))
     _launched("gather_score_l2_partial", err)
     gather_score_l2_partial.launches += 1
     return out

@@ -326,3 +326,149 @@ def test_scored_and_wide_search_on_gpu_match_cpu(cuda):
         assert abs(recalls["cuda"] - recalls["cpu"]) <= 0.02, (kind, recalls)
         same = np.sort(ids["cuda"], 1) == np.sort(ids["cpu"], 1)
         assert same.mean() >= 0.98, (kind, same.mean())
+
+
+# ---------------------------------------------------------------------------
+# The warp-per-query core of csrc/beam_step.cu: edge cases of all four
+# entry routes (beam_step over f32 and bf16 rows, beam_step_lvq,
+# beam_update) on exact inputs, and the id-range trap
+# ---------------------------------------------------------------------------
+
+# (B, C, K, d, window, m): K not a power of two (5, 100, 127, 129 - the
+# last sorts 256 elements in registers), K = C = 1024 (the sorts in shared
+# memory), one query, and the serving search's compacted tail (B 418)
+CORE_SHAPES = {
+    "k5": (16, 16, 5, 128, 12, 4),
+    "k100": (16, 100, 100, 128, 100, 4),
+    "k127": (16, 16, 127, 128, 12, 4),
+    "k129": (16, 32, 129, 128, 24, 4),
+    "k1024": (2, 1024, 1024, 4096, 700, 40),
+    "b1": (1, 16, 128, 128, 12, 4),
+    "b418": chip_smoke.TAIL_SHAPE,
+}
+# candidate rewrites at the serving widths (B 32)
+CORE_EDITS = ("all_invalid", "all_in_beam", "one_id", "unaligned")
+CORE_ROUTES = ("f32", "bf16", "lvq", "update")
+
+
+def _core_inputs(route, shape, rng):
+    """Exact inputs of one route and the keyword arguments of its call."""
+    _b, _c, _k, d, window, m = shape
+    if route == "update":
+        return (chip_smoke.make_update_case(rng, shape, grid=True),
+                dict(window=window, m=m))
+    if route == "lvq":
+        n_dead = 3 if d > 3 else 0
+        return (chip_smoke.make_lvq_case(rng, shape, n_dead, grid=True),
+                dict(metric=0, window=window, m=m, n_dead=n_dead))
+    args = chip_smoke.make_case(rng, shape, grid=True)
+    if route == "bf16":
+        args[2] = args[2].to(torch.bfloat16)
+    return args, dict(metric=0, window=window, m=m)
+
+
+def _edit_candidates(args, route, edit, rng):
+    """Rewrites the candidate ids (the rows stay: the kernel and the plain
+    version score the same rows) or moves the row block off 16 bytes."""
+    ids_at = {"update": 3, "lvq": 6}.get(route, 3)
+    cand = args[ids_at]
+    beam_keys, beam_packed = args[0], args[1]
+    if edit == "all_invalid":
+        cand = torch.full_like(cand, -1)
+    elif edit == "all_in_beam":
+        live = torch.where(torch.isfinite(beam_keys),
+                           beam_packed & bs.ID_MASK, -1)
+        n_live = torch.isfinite(beam_keys).sum(1, keepdim=True).clamp_min(1)
+        cols = torch.arange(cand.shape[1], device=cand.device)[None, :]
+        cand = torch.gather(live, 1, cols % n_live).to(torch.int32)
+    elif edit == "one_id":
+        cand = torch.full_like(cand, int(rng.integers(0, 400)))
+    elif edit == "unaligned":
+        rows = args[2]
+        flat = torch.empty(rows.numel() + 1, dtype=rows.dtype,
+                           device=rows.device)
+        flat[1:] = rows.reshape(-1)
+        args[2] = flat[1:].view(rows.shape)
+        assert args[2].is_contiguous() and args[2].data_ptr() % 16 != 0
+    args[ids_at] = cand.contiguous()
+    return args
+
+
+def _run_route(route, args, kw):
+    from scalablevectorsearch_tpu_torch.ops.kernels import beam_update as bu
+    kernel, plain = {
+        "update": (bu.beam_update, bu.beam_update_plain),
+        "lvq": (bs.beam_step_lvq, bs.beam_step_lvq_plain),
+    }.get(route, (bs.beam_step, bs.beam_step_plain))
+    before = kernel.launches
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    return got, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route,case", [
+    (route, case) for route in CORE_ROUTES
+    for case in list(CORE_SHAPES) + list(CORE_EDITS)
+    if not (route == "update" and case == "unaligned")])  # reads no rows
+def test_core_edge_cases_match_plain_exactly(cuda, route, case):
+    """All five outputs identical to the plain version on exact inputs."""
+    rng = np.random.default_rng(len(case) * 7 + len(route))
+    shape = CORE_SHAPES.get(case, (32, 16, 128, 128, 12, 4))
+    args, kw = _core_inputs(route, shape, rng)
+    if case in CORE_EDITS:
+        args = _edit_candidates(args, route, case, rng)
+    got, want = _run_route(route, args, kw)
+    for name, g, w in zip(("keys", "packed", "popped", "pool_keys",
+                           "pool_ids"), got, want):
+        assert torch.equal(g, w), (route, case, name)
+
+
+_TRAP_SCRIPT = """
+import sys, numpy as np, torch
+import chip_smoke
+from scalablevectorsearch_tpu_torch.ops.kernels import beam_step as bs
+from scalablevectorsearch_tpu_torch.ops.kernels import beam_update as bu
+route = sys.argv[1]
+rng = np.random.default_rng(0)
+shape = (4, 16, 32, 128, 12, 4)
+if route == "update":
+    args = chip_smoke.make_update_case(rng, shape, grid=True)
+    call = lambda a: bu.beam_update(*a, window=12, m=4)
+    at = 3
+elif route == "lvq":
+    args = chip_smoke.make_lvq_case(rng, shape, 0, grid=True)
+    call = lambda a: bs.beam_step_lvq(*a, metric=0, window=12, m=4, n_dead=0)
+    at = 6
+else:
+    args = chip_smoke.make_case(rng, shape, grid=True)
+    call = lambda a: bs.beam_step(*a, metric=0, window=12, m=4)
+    at = 3
+call(args)
+torch.cuda.synchronize()
+print("valid ids ran", flush=True)
+args[at][2, 5] = 1 << 30
+call(args)
+torch.cuda.synchronize()
+print("no trap", flush=True)
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["dense", "lvq", "update"])
+def test_id_at_visited_bit_traps(cuda, route):
+    """An id >= 2^30 traps inside the kernel (the wrappers no longer check
+    on the host); the trap ends the CUDA context, so it runs in a child
+    process, which must fail at the synchronisation after the bad call."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _TRAP_SCRIPT, route],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=300, check=False)
+    assert "valid ids ran" in proc.stdout, proc.stderr[-2000:]
+    assert "no trap" not in proc.stdout
+    assert proc.returncode != 0

@@ -17,8 +17,9 @@ For each it prints the wall time with the profiler on, the device busy
 time (the sum of the device-side events' times: kernels and copies), the
 device's idle share, the share of the beam-step kernels (beam_step,
 beam_step_lvq, beam_update: one template) and of the scoring kernels
-(score_rows, gather_score_l2_partial), and the largest device items.  It
-exits non-zero without a CUDA device.
+(score_rows, gather_score_l2_partial), for each of those five kernels its
+launch count and mean device ms per launch, and the largest device items.
+It exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,6 +37,19 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 TOP = 8
+# row loader of a beam_step_kernel instance -> the port's kernel
+LOADERS = (("DenseRows", "beam_step"), ("LvqRows", "beam_step_lvq"),
+           ("KeyRows", "beam_update"))
+
+
+def kernel_of(key: str):
+    """Which of the five kernels a profiler entry is, or None."""
+    if "beam_step_kernel" in key:
+        return next((name for loader, name in LOADERS if loader in key),
+                    None)
+    if "score_kernel<" in key:                  # score_kernel<T, kGather>
+        return "gather_score_l2_partial" if "true>" in key else "score_rows"
+    return None
 
 
 def device_time(event) -> float:
@@ -67,6 +81,15 @@ def profiled(label: str, fn) -> None:
           f"{busy:.2f} ms, idle {1 - busy / wall_ms:.1%}, beam-step kernels "
           f"{beam:.3f} ms = {beam / busy:.1%} of busy, scoring kernels "
           f"{scoring:.3f} ms = {scoring / busy:.1%}", flush=True)
+    per_kernel = {}
+    for key, t, count in items:
+        name = kernel_of(key)
+        if name:
+            total, n = per_kernel.get(name, (0.0, 0))
+            per_kernel[name] = (total + t, n + count)
+    for name, (total, n) in sorted(per_kernel.items()):
+        print(f"  kernel {name}: {n} launches, {total / n:.4f} ms device "
+              f"time per launch", flush=True)
     for key, t, count in sorted(items, key=lambda x: -x[1])[:TOP]:
         print(f"  {t:8.3f} ms {t / busy:6.1%} x{count:<5d} {key[:90]}",
               flush=True)
