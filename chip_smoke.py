@@ -11,6 +11,7 @@ Phases, one line of detail each (any failure exits non-zero):
      beam_update) and csrc/gather_distance.cu (score_rows,
      gather_score_l2_partial) for sm_90a from the checkout, one nvcc per
      source, both started together; ptxas registers per kernel instance;
+     SASS instruction counts of gather_distance's kernel instances;
   3. kernels: beam_step's CUDA kernel against its plain PyTorch version on
      the card, 3 metrics x {f32, bf16} rows at the serving, the build and
      the tail (B 418) shape, plus times (below);
@@ -22,7 +23,8 @@ Phases, one line of detail each (any failure exits non-zero):
      shapes (tied and real keys: identical outputs);
      score_rows against its plain version at (2048, 128, 128) f32;
      gather_score_l2_partial against its plain version from a 100k x 128
-     table in f32, float16 and int8, ids with repeats, at (2048, 128);
+     table in f32, float16 and int8, ids with repeats, at (2048, 128),
+     and in float16 at the tail's (418, 128);
      times, bounds, plain times, and torch.bmm (the dot half of
      score_rows) as score_rows' library call.
      A kernel's time ``ms`` is device time: RAW_LAUNCHES calls of its C
@@ -64,12 +66,20 @@ gather_score_l2_partial); the last line is ``{"ok": true, "device":
 {...}}``.
 
     python3 chip_smoke.py --kernels-only
+    python3 chip_smoke.py --kernels-only --other-gather PATH.cu
 
-runs phases 1-5 alone and prints every kernel's times by shape.
+run phases 1-5 alone and print every kernel's times by shape.  The second
+form also builds PATH.cu, another version of csrc/gather_distance.cu (the
+parent commit's, say, copied into a gitignored directory), and times its
+score_rows and gather_score_l2_partial in turns with this checkout's on
+the same inputs (other, this, this, other).  Phase 2 prints the SASS
+instruction counts of both gather_distance libraries (cuobjdump).
 """
 
 from __future__ import annotations
 
+import functools
+import itertools
 import json
 import os
 import statistics
@@ -150,24 +160,101 @@ def ptxas_report(text: str) -> list:
     return out
 
 
-def phase_build() -> float:
-    """Both sources at once, one nvcc each; returns the wall seconds."""
+def build_other(source: str):
+    """nvcc of another version of csrc/gather_distance.cu (``source``, e.g.
+    the parent commit's) with the package's flags into its ``_build/``;
+    returns the library path.  Its C entry points keep their names and
+    signatures, so the same argument builders serve both."""
+    import hashlib
+    from pathlib import Path
     from scalablevectorsearch_tpu_torch.ops.kernels import _build
+    src = Path(source).resolve()
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = _build.BUILD_DIR / f"libother_gather_distance_{digest}.so"
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                           str(out), str(src)], capture_output=True,
+                          text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    return out
+
+
+# SASS opcodes counted per kernel instance by sass_report
+SASS_OPS = ("LDG", "STG", "SHFL", "I2F", "HADD2.F32", "PRMT", "IDP", "LOP3",
+            "FFMA", "FADD", "FMUL", "IMAD", "LDS")
+
+
+def sass_report(lib) -> list:
+    """Instruction counts per kernel instance of ``lib`` from ``cuobjdump
+    -sass`` (an opcode counts under the first SASS_OPS entry it starts
+    with), or one line saying why there are none."""
+    from scalablevectorsearch_tpu_torch.ops.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    proc = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=False)
+    if proc.returncode != 0:
+        return [f"cuobjdump failed: {proc.stderr.strip()[:200]}"]
+    funcs, name = {}, None
+    for ln in proc.stdout.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :", 1)[1].strip()
+            funcs[name] = {}
+        elif name and ln.strip().startswith("/*") and "*/" in ln:
+            body = ln.split("*/", 1)[1].strip()
+            if not body or body.startswith("/*"):
+                continue
+            words = body.split()
+            op = words[1] if words[0].startswith("@") else words[0]
+            op = op.rstrip(";")
+            counts = funcs[name]
+            counts["total"] = counts.get("total", 0) + 1
+            for key in SASS_OPS:
+                if op.startswith(key):
+                    counts[key] = counts.get(key, 0) + 1
+                    break
+    filt = os.path.join(os.path.dirname(tool), "cu++filt")
+    out = []
+    for mangled, counts in funcs.items():
+        shown = mangled
+        if os.path.exists(filt):
+            shown = subprocess.run([filt, mangled], capture_output=True,
+                                   text=True, check=False).stdout.strip() \
+                or mangled
+        out.append(f"{shown}: " + " ".join(
+            f"{k} {counts.get(k, 0)}" for k in ("total",) + SASS_OPS))
+    return out
+
+
+def phase_build(other_gather: str | None = None) -> tuple:
+    """Both sources at once (and ``other_gather``, another version of
+    csrc/gather_distance.cu, beside them), one nvcc each; returns the wall
+    seconds and the other library's path (None without one)."""
+    from scalablevectorsearch_tpu_torch.ops.kernels import _build
+    jobs = {f"{name}.cu": functools.partial(_build.build, name)
+            for name in SOURCES}
+    other = f"{other_gather} (other gather_distance.cu)"
+    if other_gather:
+        jobs[other] = functools.partial(build_other, other_gather)
     t0 = time.perf_counter()
 
-    def one(name):
+    def one(build):
         start = time.perf_counter()
-        return _build.build(name), time.perf_counter() - start
+        return build(), time.perf_counter() - start
 
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        built = list(pool.map(one, SOURCES))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = dict(zip(jobs, pool.map(one, jobs.values())))
     seconds = time.perf_counter() - t0
-    for name, (path, own_s) in zip(SOURCES, built):
-        log(f"build: {name}.cu -> {path.name} in {own_s:.2f} s")
+    for label, (path, own_s) in built.items():
+        log(f"build: {label} -> {path.name} in {own_s:.2f} s")
         for line in ptxas_report(path.with_suffix(".log").read_text()):
             log(f"build: ptxas {line}")
-    log(f"build: both libraries in {seconds:.2f} s")
-    return seconds
+        if "gather_distance" in label:
+            for line in sass_report(path):
+                log(f"build: sass {line}")
+    log(f"build: {len(jobs)} libraries in {seconds:.2f} s")
+    return seconds, (built[other][0] if other_gather else None)
 
 
 def make_case(rng, shape, grid, query_dtype=torch.float32):
@@ -228,13 +315,24 @@ def input_sets(args: list) -> list:
     return [args] + [[t.clone() for t in args] for _ in range(n - 1)]
 
 
-def time_raw(entry, args: list, make_out, make_raw) -> dict:
+def time_raw(entry, args: list, make_out, make_raw, other=None) -> dict:
     """:func:`kernel_ms` over :func:`input_sets` of ``args``:
     ``make_out(set)`` preallocates a set's outputs, ``make_raw(set, out)``
-    gives the entry point's C arguments."""
+    gives the entry point's C arguments.  With ``other`` (the same entry
+    point of another build of the source), the two run in turns on the
+    same inputs: other, this, this, other; ``ms`` is this one's mean,
+    ``other_ms`` the other's, ``turns_ms`` the four in order."""
     sets = input_sets(args)
     outs = [make_out(a) for a in sets]
-    return kernel_ms(entry, [make_raw(a, o) for a, o in zip(sets, outs)])
+    raw = [make_raw(a, o) for a, o in zip(sets, outs)]
+    if other is None:
+        return kernel_ms(entry, raw)
+    turns = [kernel_ms(fn, raw) for fn in (other, entry, entry, other)]
+    t = dict(turns[1])
+    t["turns_ms"] = [x["ms"] for x in turns]
+    t["ms"] = (turns[1]["ms"] + turns[2]["ms"]) / 2
+    t["other_ms"] = (turns[0]["ms"] + turns[3]["ms"]) / 2
+    return t
 
 
 def kernel_ms(entry, raw_args: list) -> dict:
@@ -289,13 +387,16 @@ def kernel_ms(entry, raw_args: list) -> dict:
 
 def describe(t: dict) -> str:
     """The timing fields of one kernel case, for the log."""
+    other = "" if "other_ms" not in t else (
+        f"; other source {t['other_ms']:.4f} ms (turns other, this, this, "
+        f"other: {', '.join(f'{x:.4f}' for x in t['turns_ms'])})")
     return (f"device {t['ms']:.4f} ms/launch (profiler "
             f"{t['profiler_ms']:.4f}, host issue {t['issue_ms']:.4f}"
             f"{' HOST-BOUND' if t['host_bound'] else ''}, "
             f"{t['input_sets']} input sets), wrapper call {t['call_ms']:.4f}"
             f" ms, plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} "
             f"ms by {t['bound_by']} ({t['bytes']} bytes, {t['flops']} "
-            f"flops) = {t['bound_ms'] / t['ms']:.1%} of it")
+            f"flops) = {t['bound_ms'] / t['ms']:.1%} of it" + other)
 
 
 def make_lvq_case(rng, shape, n_dead: int, grid: bool):
@@ -770,20 +871,40 @@ def grid_values(rng, shape, d: int):
                    kmax).astype(np.float32) / np.float32(32)
 
 
-def phase_kernels_scored() -> dict:
+def other_entries(lib) -> dict:
+    """The C entry points of another build of csrc/gather_distance.cu
+    (:func:`build_other`), argument types set as the wrapper sets them;
+    empty without one."""
+    import ctypes
+    from scalablevectorsearch_tpu_torch.ops.kernels import (
+        gather_distance as gd)
+    if lib is None:
+        return {}
+    handle = ctypes.CDLL(str(lib))
+    out = {}
+    for name, argtypes in gd._ARGTYPES.items():
+        fn = getattr(handle, name)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        out[name] = fn
+    return out
+
+
+def phase_kernels_scored(other_lib=None) -> dict:
     """The scored route's kernels against their plain versions on the card.
     beam_update: tied (grid) and real keys, all five outputs identical (the
     keys are inputs, so nothing is rounded).  score_rows and
     gather_score_l2_partial: exact (grid) inputs identical; real inputs
     within rtol 1e-5 (atol 1e-5 of the values' scale): the sums run in
     another order.  Median times, plain times, bounds, and torch.bmm for
-    the dot half of score_rows."""
+    the dot half of score_rows.  ``other_lib``: another build of
+    csrc/gather_distance.cu, timed in turns with this one (time_raw)."""
     from scalablevectorsearch_tpu_torch.ops.kernels import beam_step as bs
     from scalablevectorsearch_tpu_torch.ops.kernels import beam_update as bu
     from scalablevectorsearch_tpu_torch.ops.kernels import (
         gather_distance as gd)
     rng = np.random.default_rng(3)
     failures, out = [], {}
+    other = other_entries(other_lib)
 
     timings = {}
     for label, shape in STEP_SHAPES:
@@ -833,7 +954,8 @@ def phase_kernels_scored() -> dict:
     t = time_raw(gd._kernel_entry("svt_score_rows"), [rows, q],
                  lambda a: (torch.empty((B, K), device="cuda"),
                             torch.empty((B, K), device="cuda")),
-                 lambda a, o: gd.score_rows_args(*a, o))
+                 lambda a, o: gd.score_rows_args(*a, o),
+                 other.get("svt_score_rows"))
     t["call_ms"] = median_ms(lambda: gd.score_rows(rows, q))
     t["plain_ms"] = median_ms(lambda: gd.score_rows_plain(rows, q))
     bmm_sets = input_sets([rows, q])
@@ -848,54 +970,64 @@ def phase_kernels_scored() -> dict:
         f"{len(bmm_sets)} input sets; real inputs max_abs_err {max_err:.3g}")
 
     max_err, timings = 0.0, {}
-    ids = rng.integers(0, TABLE_ROWS, size=(B, K)).astype(np.int32)
-    ids[::2, K // 2:] = ids[::2, :K // 2]        # repeats within a row
-    ids = torch.from_numpy(ids).cuda()
-    n_unique = int(torch.unique(ids).numel())
+    # ids at the serving shape and at the tail's (B 418), repeats within
+    # a row; the tail is timed over float16 rows, the main path's type
+    id_sets = {}
+    for suffix, n_q in (("", B), ("_tail", TAIL_SHAPE[0])):
+        ids = rng.integers(0, TABLE_ROWS, size=(n_q, K)).astype(np.int32)
+        ids[::2, K // 2:] = ids[::2, :K // 2]
+        id_sets[suffix] = torch.from_numpy(ids).cuda()
     for grid in (True, False):
         if grid:
             base = grid_values(rng, (TABLE_ROWS, d), d)
-            q = torch.from_numpy(grid_values(rng, (B, d), d)).cuda()
+            q_all = torch.from_numpy(grid_values(rng, (B, d), d)).cuda()
         else:
             base = rng.normal(size=(TABLE_ROWS, d)).astype(np.float32)
-            q = torch.from_numpy(rng.normal(size=(B, d)).astype(
+            q_all = torch.from_numpy(rng.normal(size=(B, d)).astype(
                 np.float32)).cuda()
         base = torch.from_numpy(base).cuda()
         tables = {"f32": base, "float16": base.half(),
                   "int8": (base * 32).round().clamp(-127, 127).to(torch.int8)}
-        for name, table in tables.items():
+        for (name, table), (suffix, ids) in itertools.product(
+                tables.items(), id_sets.items()):
+            if suffix and name != "float16":
+                continue
+            n_q = ids.shape[0]
+            q = q_all[:n_q]
             got = gd.gather_score_l2_partial(table, ids, q)
             want = gd.gather_score_l2_partial_plain(table, ids, q)
             torch.cuda.synchronize()
             if grid and not torch.equal(got, want):
-                failures.append(f"gather_score_l2_partial {name} grid "
-                                "differs")
+                failures.append(f"gather_score_l2_partial {name}{suffix} "
+                                "grid differs")
             err = float((got - want).abs().max())
             if not grid:
                 max_err = max(max_err, err)
             if not torch.allclose(got, want, rtol=1e-5,
                                   atol=1e-5 * float(want.abs().max())):
-                failures.append(f"gather_score_l2_partial {name} "
+                failures.append(f"gather_score_l2_partial {name}{suffix} "
                                 f"grid={grid}: {err:.3g}")
             if grid:
                 continue
             t = time_raw(
                 gd._kernel_entry("svt_gather_score_l2_partial"),
                 [table, ids, q],
-                lambda a: torch.empty((B, K), device="cuda"),
-                lambda a, o: gd.gather_score_l2_partial_args(*a, o))
+                lambda a: torch.empty(a[1].shape, device="cuda"),
+                lambda a, o: gd.gather_score_l2_partial_args(*a, o),
+                other.get("svt_gather_score_l2_partial"))
             t["call_ms"] = median_ms(
                 lambda: gd.gather_score_l2_partial(table, ids, q))
             t["plain_ms"] = median_ms(
                 lambda: gd.gather_score_l2_partial_plain(table, ids, q))
             # the rows this run's ids need (each distinct row once), the
             # ids, the queries and the output
+            n_unique = int(torch.unique(ids).numel())
             row_bytes = d * table.element_size()
             t.update(bound_of(n_unique * row_bytes + nbytes(ids, q)
-                              + B * K * 4, 4 * B * K * d))
-            timings[name] = t
+                              + n_q * K * 4, 4 * n_q * K * d))
+            timings[name + suffix] = t
             log(f"kernels: gather_score_l2_partial {name} table "
-                f"{TABLE_ROWS}x{d}, ids ({B}, {K}) ({n_unique} distinct): "
+                f"{TABLE_ROWS}x{d}, ids ({n_q}, {K}) ({n_unique} distinct): "
                 + describe(t))
     out["gather_score_l2_partial"] = {"max_abs_err": max_err,
                                       "timings": timings}
@@ -1040,12 +1172,18 @@ def kernel_entry(name: str, replaces: str, launches: int, kern: dict,
 
 
 def main(argv: list) -> int:
+    kernels_only = argv[:1] == ["--kernels-only"]
+    other_gather = None
+    if kernels_only and argv[1:2] == ["--other-gather"] and len(argv) == 3:
+        other_gather = argv[2]
+    elif argv and argv != ["--kernels-only"]:
+        raise SystemExit(f"chip_smoke: unknown arguments {argv}")
     device = phase_device()
-    build_s = phase_build()
+    build_s, other_lib = phase_build(other_gather)
     kern = phase_kernels()
     kern_lvq = phase_kernels_lvq()
-    kern_scored = phase_kernels_scored()
-    if argv == ["--kernels-only"]:
+    kern_scored = phase_kernels_scored(other_lib)
+    if kernels_only:
         # phases 1-5 only: the kernels' checks and times, for comparing two
         # versions of the sources in one run on one card
         log(json.dumps({"kernels_only": {
@@ -1053,8 +1191,6 @@ def main(argv: list) -> int:
             **{name: k["timings"] for name, k in kern_scored.items()}}}))
         print(json.dumps({"ok": True, "device": device}))
         return 0
-    if argv:
-        raise SystemExit(f"chip_smoke: unknown arguments {argv}")
     main_path = phase_main_path()
     main_launches = main_path["launches"]
     lvq_path = phase_lvq_path(main_path)

@@ -241,31 +241,76 @@ def test_score_rows_kernel_matches_plain(cuda, d):
         assert torch.equal(g.cpu(), w)
 
 
+# (K, B) of the gather: K below, at and above one 32-id chunk and 128, and
+# K 1024 (a query split over four warps at B 1); B 1 and the tail's 418;
+# then every id equal, and a table or queries off 16-byte alignment (the
+# generic path)
+GATHER_CASES = [f"k{k}_b{b}" for k in (1, 5, 127, 128, 129, 1024)
+                for b in (1, 418)] + ["one_id", "unaligned_table",
+                                      "unaligned_queries"]
+
+
+def _misaligned(t: torch.Tensor, offset_bytes: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts ``offset_bytes`` past a
+    16-byte boundary."""
+    skip = offset_bytes // t.element_size()
+    flat = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = flat[skip:skip + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 == offset_bytes
+    return out
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [128, 50])
+@pytest.mark.parametrize("case", GATHER_CASES)
+@pytest.mark.parametrize("d", [128, 256, 96, 50])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
                                    torch.bfloat16, torch.int8, torch.uint8])
-def test_gather_score_l2_partial_kernel_matches_plain(cuda, dtype, d):
+def test_gather_score_l2_partial_kernel_matches_plain(cuda, dtype, d, case):
     """Exact (grid) tables of every element type give the plain version's
-    partial keys exactly, including ids outside the table (clamped)."""
+    partial keys exactly, real-valued ones within rtol 1e-5 (atol 1e-5 of
+    the keys' scale: the sums run in another order), ids outside the table
+    (clamped) included.  d 128 and 256 take the fast path for every type;
+    d 96 and 50 (rows of no whole multiple of 128 bytes) and unaligned
+    tensors the generic one."""
     from scalablevectorsearch_tpu_torch.ops.kernels import (
         gather_distance as gd)
-    rng = np.random.default_rng(d)
-    base = torch.from_numpy(chip_smoke.grid_values(rng, (300, d), d))
-    if dtype in (torch.int8, torch.uint8):
-        base = (base * 32).round().clamp(-127, 127)
-        if dtype == torch.uint8:
-            base = base.abs()
-    table = base.to(dtype).cuda()
-    ids = torch.from_numpy(rng.integers(-3, 310, size=(16, 40)).astype(
-        np.int32)).cuda()
-    q = torch.from_numpy(chip_smoke.grid_values(rng, (16, d), d)).cuda()
-    before = gd.gather_score_l2_partial.launches
-    got = gd.gather_score_l2_partial(table, ids, q)
-    want = gd.gather_score_l2_partial_plain(table, ids, q)
-    torch.cuda.synchronize()
-    assert gd.gather_score_l2_partial.launches == before + 1
-    assert torch.equal(got, want)
+    rng = np.random.default_rng(d + GATHER_CASES.index(case))
+    k, b = (128, 418) if not case.startswith("k") else \
+        map(int, case[1:].split("_b"))
+    n_rows = 300
+    ids = rng.integers(-3, n_rows + 10, size=(b, k)).astype(np.int32)
+    if case == "one_id":
+        ids[:] = rng.integers(0, n_rows)
+    ids = torch.from_numpy(ids).cuda()
+    for grid in (True, False):
+        if grid:
+            base = torch.from_numpy(chip_smoke.grid_values(
+                rng, (n_rows, d), d))
+            q = torch.from_numpy(chip_smoke.grid_values(rng, (b, d), d))
+        else:
+            base = torch.from_numpy(rng.normal(size=(n_rows, d)).astype(
+                np.float32))
+            q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+        if dtype in (torch.int8, torch.uint8):
+            base = (base * 32).round().clamp(-127, 127)
+            if dtype == torch.uint8:
+                base = base.abs()
+        table, q = base.to(dtype).cuda(), q.cuda()
+        if case == "unaligned_table":
+            table = _misaligned(table, 8)
+        elif case == "unaligned_queries":
+            q = _misaligned(q, 4)
+        before = gd.gather_score_l2_partial.launches
+        got = gd.gather_score_l2_partial(table, ids, q)
+        want = gd.gather_score_l2_partial_plain(table, ids, q)
+        torch.cuda.synchronize()
+        assert gd.gather_score_l2_partial.launches == before + 1
+        if grid:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(
+                got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
 
 
 @pytest.mark.gpu

@@ -40,6 +40,8 @@ TOP = 8
 # row loader of a beam_step_kernel instance -> the port's kernel
 LOADERS = (("DenseRows", "beam_step"), ("LvqRows", "beam_step_lvq"),
            ("KeyRows", "beam_update"))
+# gather_score_l2_partial's fast kernel (not PyTorch's vectorized_gather_kernel)
+FAST_GATHER = "namespace)::gather_kernel<"
 
 
 def kernel_of(key: str):
@@ -49,6 +51,8 @@ def kernel_of(key: str):
                     None)
     if "score_kernel<" in key:                  # score_kernel<T, kGather>
         return "gather_score_l2_partial" if "true>" in key else "score_rows"
+    if FAST_GATHER in key:                      # its fast path
+        return "gather_score_l2_partial"
     return None
 
 
@@ -76,7 +80,8 @@ def profiled(label: str, fn) -> None:
     if busy <= 0:
         raise RuntimeError(f"{label}: the profiler saw no device time")
     beam = sum(t for key, t, _ in items if "beam_step_kernel" in key)
-    scoring = sum(t for key, t, _ in items if "score_kernel" in key)
+    scoring = sum(t for key, t, _ in items
+                  if "score_kernel" in key or FAST_GATHER in key)
     print(f"{label}: wall {wall_ms:.2f} ms (profiler on), device busy "
           f"{busy:.2f} ms, idle {1 - busy / wall_ms:.1%}, beam-step kernels "
           f"{beam:.3f} ms = {beam / busy:.1%} of busy, scoring kernels "
