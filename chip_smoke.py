@@ -39,12 +39,25 @@ Phases, one line of detail each (any failure exits non-zero):
      entries), exhaustive ground truth, bf16 packed serving of 5000
      queries, window sweep to recall@10 >= 0.9, QPS over 5 repetitions;
      the kernel's launch count must grow during build and during serving;
-  7. LVQ path, over the main path's graph: LVQ-8 packed serving (window
+  7. persistence: the main index saved and assembled onto the card three
+     ways (save / assemble, save_stream / assemble_stream, save_host /
+     assemble), each copy's graph, dataset, sampler and parameters equal
+     to the live index's and its bf16 packed search identical in ids and
+     distances (beam_step launching); the JAX package's legacy v0.0.1 LVQ
+     checkpoints (data/legacy) loaded on the card, decoding within 1e-5 of
+     a fresh compress; seconds and bytes of every round trip;
+  8. host rerank: recall@10 and QPS of the main index at its window with
+     float16 uploads, int8 uploads, and int8 uploads re-ranked exactly on
+     the host (enable_host_rerank), which must not lose recall to int8
+     alone;
+  9. LVQ path, over the main path's graph: LVQ-8 packed serving (window
      sweep to recall@10 >= 0.9, QPS), LVQ-8 unpacked and two-level LVQ8x8
      packed (rerank) at that window; then an LVQ-8 build at 100k x 128
      with the main path's parameters and its sweep; beam_step_lvq's launch
-     count must grow in every one of them;
-  8. scored path, over the main path's data: a float16 VectorDataset on the
+     count must grow in every one of them; compress_and_save_host equal to
+     LVQDataset.compress bit for bit, and the LVQ8x8 dataset and the LVQ-8
+     index saved, assembled and served identically;
+  10. scored path, over the main path's data: a float16 VectorDataset on the
      main path's graph, unpacked (window sweep to recall@10 >= 0.9, QPS,
      recall within 0.01 of the f32 index at that window;
      gather_score_l2_partial and beam_update launch); an SQ-int8 build at
@@ -55,11 +68,11 @@ Phases, one line of detail each (any failure exits non-zero):
      and its cap are printed beside it); one
      wide search (capacity 1280, window 1280, k 10, 1000 queries, f32
      rows: gather_score_l2_partial launches, beam_update does not; recall
-     at least the f32 index's at window 128);
-  9. golden gate: the L2, MIP and cosine rows of
-     data/golden/vamana_reference.json within +-0.05 recall (cosine
-     +-0.10, see GOLDEN_TOL).
-Each path (6, 7, 8) starts with every launch count at 0 and reads them at
+     at least the f32 index's at window 128); the float16 dataset and the
+     SQ-int8 index saved, assembled and served identically;
+  11. golden gate: the L2, MIP and cosine rows of
+     data/golden/vamana_reference.json within +-0.05 recall (GOLDEN_TOL).
+Each path (6-10) starts with every launch count at 0 and reads them at
 its end.  The line before the last is the JSON summary of the five
 kernels (beam_step, beam_step_lvq, beam_update, score_rows,
 gather_score_l2_partial); the last line is ``{"ok": true, "device":
@@ -78,6 +91,7 @@ instruction counts of both gather_distance libraries (cuobjdump).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import itertools
 import json
@@ -85,6 +99,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -100,12 +115,12 @@ TAIL_SHAPE = (418, 16, 128, 128, 12, 4)
 STEP_SHAPES = (("serving", SERVING_SHAPE), ("build", BUILD_SHAPE),
                ("tail", TAIL_SHAPE))
 WINDOWS = (11, 12, 13, 14, 16, 20, 24, 32, 48, 64, 96, 128)
-# Recall tolerance per golden row.  The cosine row of the reference is
-# sensitive to the build schedule: on the CPU, where the port reproduces the
-# golden bit for bit, changing only the build batch size (200-300 instead
-# of 250) moves it by up to 0.097 in the JAX package itself, so it is held
-# to that measured spread; L2 and MIP are stable and keep +-0.05.
-GOLDEN_TOL = {"L2": 0.05, "MIP": 0.05, "Cosine": 0.10}
+# Recall tolerance per golden row.  The cosine row moves by up to 0.097 in
+# the JAX package itself when only the build batch size changes, but the
+# port's build on the card reproduces the reference's cosine row to the
+# digit (0.3730 / 0.4796 / 0.5642 / 0.6656 in every run since the beam-step
+# redesign), so all three rows are held to +-0.05.
+GOLDEN_TOL = {"L2": 0.05, "MIP": 0.05, "Cosine": 0.05}
 TIMING_REPS = 20
 RAW_LAUNCHES = 50              # raw launches per timing window
 RAW_WINDOWS = 5
@@ -716,14 +731,223 @@ def timed_serving(index, queries, gt, label: str, f32_recall: float,
     return {"recall": recall, "qps": qps, "launches": launches}
 
 
+def sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def tree_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, name))
+               for root, _dirs, files in os.walk(path) for name in files)
+
+
+def round_trip(label: str, save, load):
+    """``save(directory)`` then ``load(directory)`` in a fresh temporary
+    directory; logs the seconds of each and the checkpoint's bytes and
+    returns what ``load`` gave."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save(tmp)
+        save_s = time.perf_counter() - t0
+        size = tree_bytes(tmp)
+        t0 = time.perf_counter()
+        out = load(tmp)
+        sync()
+        load_s = time.perf_counter() - t0
+    log(f"persistence: {label}: save {save_s:.3f} s, assemble {load_s:.3f} "
+        f"s, {size} bytes")
+    return out
+
+
+def same_tensors(label: str, got, want) -> None:
+    """Every tensor field of two dataclasses (a dataset, a graph, a
+    sampler) equal and on the same device."""
+    for field in dataclasses.fields(want):
+        a, b = getattr(got, field.name), getattr(want, field.name)
+        if isinstance(b, torch.Tensor):
+            if a.device != b.device or not torch.equal(a, b):
+                raise AssertionError(f"{label}: {field.name} differs after "
+                                     f"the round trip")
+        elif a != b:
+            raise AssertionError(f"{label}: {field.name} {a} != {b}")
+
+
+def same_index(label: str, got, want) -> None:
+    """An assembled VamanaIndex against the live one: graph, dataset,
+    sampler (config and sample), entry point and search parameters."""
+    same_tensors(label + " graph", got.graph, want.graph)
+    same_tensors(label + " data", got.data, want.data)
+    same_tensors(label + " sampler", got._entry_sampler, want._entry_sampler)
+    if (got._entry_cfg, got.entry_point, got.search_parameters) != \
+            (want._entry_cfg, want.entry_point, want.search_parameters):
+        raise AssertionError(f"{label}: sampler config, entry point or "
+                             f"search parameters differ")
+
+
+def same_search(label: str, live, loaded, queries, kernels,
+                path: str = "persistence") -> dict:
+    """The live index's search and the assembled one's at the same window:
+    identical ids and distances; each of ``kernels`` must launch in the
+    assembled index's search."""
+    want = live.search(queries, 10)
+    before = [k.launches for k in kernels]
+    got = loaded.search(queries, 10)
+    launches = {k.__name__: k.launches - b for k, b in zip(kernels, before)}
+    max_diff = float(np.max(np.abs(got.distances - want.distances)))
+    log(f"{path}: {label}: window {loaded.search_window_size}, ids "
+        f"identical {np.array_equal(got.ids, want.ids)}, distances max abs "
+        f"diff {max_diff:.3g}; launches {launches}")
+    if not np.array_equal(got.ids, want.ids) or max_diff:
+        raise AssertionError(f"{label}: the assembled index searches "
+                             f"otherwise than the live one")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"{label}: {name} not launched")
+    return launches
+
+
+def phase_persistence(main_path: dict) -> dict:
+    """The main index saved and assembled three ways (directory, stream,
+    save_host), each copy checked against the live index on the card and
+    served with bf16 packed rows; the legacy JAX checkpoints loaded on the
+    card.  Every count starts at 0 here."""
+    import io
+    import scalablevectorsearch_tpu_torch as svt
+    from scalablevectorsearch_tpu_torch.ops.kernels.beam_step import (
+        beam_step, beam_step_lvq)
+    index = main_path["index"]
+    live, data, queries = index.index, main_path["data"], main_path["queries"]
+    device = live.data.device
+    beam_step.launches = beam_step_lvq.launches = 0
+
+    def stream_save(tmp):
+        with open(os.path.join(tmp, "index.svt"), "wb") as f:
+            index.save_stream(f)
+
+    def stream_load(tmp):
+        with open(os.path.join(tmp, "index.svt"), "rb") as f:
+            buf = io.BytesIO(f.read())
+        return svt.Vamana.assemble_stream(buf, device=device)
+
+    def assemble(tmp):
+        return svt.Vamana.assemble(tmp, device=device)
+
+    routes = (("save / assemble", index.save, assemble),
+              ("save_stream / assemble_stream", stream_save, stream_load),
+              ("save_host / assemble",
+               lambda tmp: live.save_host(tmp, data), assemble))
+    out = {}
+    for label, save, load in routes:
+        loaded = round_trip(label, save, load)
+        same_index(label, loaded.index, live)
+        loaded.enable_packed_serving()
+        out[label] = same_search(label, index, loaded, queries, (beam_step,))
+        del loaded
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(7)
+    fixture = rng.normal(size=(48, 20)).astype(np.float32)
+    for name, bits, res in (("lvq8_v001", 8, 0), ("lvq4x8_v001", 4, 8)):
+        got = svt.dispatch_load(os.path.join(HERE, "data", "legacy", name),
+                                device=device)
+        err = float(np.max(np.abs(got.to_numpy() - svt.LVQDataset.compress(
+            fixture, bits=bits, residual_bits=res,
+            device=device).to_numpy())))
+        log(f"persistence: legacy JAX checkpoint {name} ({got.kind}) on "
+            f"{got.codes.device}: decode max abs err {err:.3g} against a "
+            f"fresh compress")
+        if got.codes.device != device or err > 1e-5:
+            raise AssertionError(f"legacy checkpoint {name}: {err}")
+    out["launches"] = beam_step.launches
+    log(f"persistence: launches beam_step {beam_step.launches}")
+    return out
+
+
+def hits_per_query(gt, res, k: int = 10) -> np.ndarray:
+    return np.array([len(set(g) & set(r)) for g, r in
+                     zip(gt.ids[:, :k].tolist(), res.ids[:, :k].tolist())])
+
+
+def phase_host_rerank(main_path: dict) -> dict:
+    """Recall@10 and QPS (median of 5 search_async calls) of the main index
+    at its window with (a) float16 uploads, (b) int8 uploads
+    (``query_upload_dtype = "int8"``), (c) int8 uploads with the exact
+    host rerank of the fetched beam.  (c) must not lose recall to (b):
+    per query, (c) may hold fewer true neighbours than (b) only where a
+    dropped one ties (c)'s 10th distance.  The rerank ranks by the JAX
+    package's f32 norm algebra ||q||^2 - 2<q,x> + ||x||^2, whose rounding
+    is a few ulps of ||q||^2 + ||x||^2, so a tie is a float64 distance
+    within 8 f32 epsilons of that sum of (c)'s 10th.  Counts start at 0
+    here; beam_step must launch."""
+    import scalablevectorsearch_tpu_torch as svt
+    from scalablevectorsearch_tpu_torch.ops.kernels.beam_step import (
+        beam_step)
+    index = main_path["index"]
+    live = index.index
+    data, queries, gt = (main_path[key] for key in ("data", "queries", "gt"))
+    beam_step.launches = 0
+    out = {}
+
+    def timed(label):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            res = index.search_async(queries, 10).result()
+            times.append(time.perf_counter() - t0)
+        qps = len(queries) / statistics.median(times)
+        out[label] = {"recall": svt.k_recall_at_n(gt, res), "qps": qps}
+        log(f"host rerank: ({label}) window {index.search_window_size} "
+            f"recall@10 {out[label]['recall']:.4f}; search_async x5 median "
+            f"{statistics.median(times) * 1e3:.2f} ms -> {qps:.1f} QPS")
+        return res
+
+    try:
+        timed("a: float16 upload")
+        live.query_upload_dtype = "int8"
+        res_b = timed("b: int8 upload")
+        index.enable_host_rerank(data)
+        res_c = timed("c: int8 upload + host rerank")
+    finally:
+        index.disable_host_rerank()
+        live.query_upload_dtype = None
+    hb, hc = hits_per_query(gt, res_b), hits_per_query(gt, res_c)
+    worse = np.flatnonzero(hc < hb)
+    for i in worse:
+        dropped = set(res_b.ids[i, :10]) & set(gt.ids[i, :10]) \
+            - set(res_c.ids[i, :10])
+        kth = float(res_c.distances[i, 9])
+        q = queries[i].astype(np.float64)
+        for d in dropped:
+            x = data[d].astype(np.float64)
+            dist = float(((q - x) ** 2).sum())
+            tie = 8 * np.finfo(np.float32).eps * float(q @ q + x @ x)
+            if abs(dist - kth) > tie:
+                raise AssertionError(
+                    f"host rerank dropped neighbour {d} of query {i} at "
+                    f"distance {dist}, not a tie of the 10th {kth} "
+                    f"(rounding {tie:.3g})")
+    log(f"host rerank: queries with fewer true neighbours under (c) than "
+        f"(b): {len(worse)} (ties of the 10th distance within f32 "
+        f"rounding); with more: {int((hc > hb).sum())}; "
+        f"beam_step launches {beam_step.launches}")
+    if out["c: int8 upload + host rerank"]["recall"] < \
+            out["b: int8 upload"]["recall"]:
+        raise AssertionError(f"host rerank lost recall: {out}")
+    if beam_step.launches == 0:
+        raise AssertionError("host rerank phase: beam_step not launched")
+    return out
+
+
 def phase_lvq_path(main_path: dict) -> dict:
     """LVQ serving over the main path's graph (as bench.py's _lvq8_phase
     serves it) and an LVQ-8 build; every count starts at 0 here."""
     import scalablevectorsearch_tpu_torch as svt
     from scalablevectorsearch_tpu_torch.index.vamana.index import (
         VamanaIndex)
+    from scalablevectorsearch_tpu_torch.lib.saveload import save_to_disk
     from scalablevectorsearch_tpu_torch.ops.kernels.beam_step import (
         beam_step, beam_step_lvq)
+    from scalablevectorsearch_tpu_torch.quantization.lvq import (
+        compress_and_save_host)
     index = main_path["index"].index
     data, queries, gt = (main_path[key] for key in ("data", "queries", "gt"))
     index.disable_packed_serving()          # drop the bf16 packed rows
@@ -763,7 +987,12 @@ def phase_lvq_path(main_path: dict) -> dict:
     idx.disable_packed_serving()
     out["unpacked"] = timed_serving(idx, queries, gt, "LVQ-8 unpacked",
                                     out["f32_recall"])
-    del idx, lvq8
+    host = round_trip(
+        "LVQ-8 compress_and_save_host / dispatch_load",
+        lambda tmp: compress_and_save_host(tmp, data, bits=8),
+        lambda tmp: svt.dispatch_load(tmp, device=lvq8.device))
+    same_tensors("LVQ-8 compress_and_save_host", host, lvq8)
+    del idx, lvq8, host
     lvq88 = svt.LVQDataset.compress(data, bits=8, residual_bits=8)
     idx = over_graph(lvq88)
     idx.enable_packed_serving()
@@ -771,7 +1000,17 @@ def phase_lvq_path(main_path: dict) -> dict:
     out["lvq8x8"] = timed_serving(idx, queries, gt,
                                   "LVQ8x8 packed + rerank",
                                   out["f32_recall"])
-    del idx, lvq88
+    loaded = round_trip(
+        "LVQ8x8 dataset save / dispatch_load",
+        lambda tmp: save_to_disk(lvq88, tmp),
+        lambda tmp: svt.dispatch_load(tmp, device=lvq88.device))
+    same_tensors("LVQ8x8 dataset", loaded, lvq88)
+    copy = over_graph(loaded)
+    copy.enable_packed_serving()
+    copy.search_window_size = window
+    same_search("LVQ8x8 packed + rerank", idx, copy, queries,
+                (beam_step_lvq,), path="lvq path")
+    del idx, lvq88, copy, loaded
     torch.cuda.empty_cache()
 
     before = beam_step_lvq.launches
@@ -791,6 +1030,14 @@ def phase_lvq_path(main_path: dict) -> dict:
     out["build"] = {"seconds": build_s, "launches": build_launches}
     out["build"]["window"], out["build"]["recall"] = sweep(
         built, queries, gt, "lvq path: LVQ-8 build, packed serving")
+    loaded = round_trip(
+        "LVQ-8 index save / assemble", built.save,
+        lambda tmp: svt.Vamana.assemble(tmp, device=built.index.data.device))
+    same_index("LVQ-8 index", loaded.index, built.index)
+    loaded.enable_packed_serving()
+    same_search("LVQ-8 index, packed", built, loaded, queries,
+                (beam_step_lvq,), path="lvq path")
+    del loaded
     out["launches"] = beam_step_lvq.launches
     log(f"lvq path: launches beam_step_lvq {beam_step_lvq.launches}, "
         f"beam_step {beam_step.launches}")
@@ -1046,6 +1293,7 @@ def phase_scored_path(main_path: dict) -> dict:
     from scalablevectorsearch_tpu_torch.core.query_result import QueryResult
     from scalablevectorsearch_tpu_torch.index.vamana.index import (
         VamanaIndex)
+    from scalablevectorsearch_tpu_torch.lib.saveload import save_to_disk
     from scalablevectorsearch_tpu_torch.ops.kernels.beam_step import (
         beam_step, beam_step_lvq)
     from scalablevectorsearch_tpu_torch.ops.kernels.beam_update import (
@@ -1081,7 +1329,19 @@ def phase_scored_path(main_path: dict) -> dict:
     if abs(out["float16"]["recall"] - ref) > 0.01:
         raise AssertionError(f"float16 recall {out['float16']['recall']} "
                              f"vs f32 {ref} at window {window}")
-    del f16
+    loaded = round_trip(
+        "float16 dataset save / dispatch_load",
+        lambda tmp: save_to_disk(f16.data, tmp),
+        lambda tmp: svt.dispatch_load(tmp, device=f16.data.device))
+    same_tensors("float16 dataset", loaded, f16.data)
+    copy = VamanaIndex(index.graph, loaded, index.entry_point,
+                       index.distance, query_batch_size=index.query_batch_size)
+    copy.enable_entry_sampler()
+    copy.pop_width = index.pop_width
+    copy.search_window_size = window
+    same_search("float16 unpacked", f16, copy, queries,
+                (gather_score_l2_partial, beam_update), path="scored path")
+    del f16, copy, loaded
 
     # 2. an SQ-int8 build and its unpacked serving.  One global scale
     # caps SQ-int8's recall against the f32 ground truth below 0.9 here
@@ -1120,7 +1380,13 @@ def phase_scored_path(main_path: dict) -> dict:
                       build_launches=launches, vs_f32=vs_f32,
                       ceiling=ceiling,
                       mean_degree=built.index.graph.mean_degree())
-    del built, sq
+    loaded = round_trip(
+        "SQ-int8 index save / assemble", built.save,
+        lambda tmp: svt.Vamana.assemble(tmp, device=built.index.data.device))
+    same_index("SQ-int8 index", loaded.index, built.index)
+    same_search("SQ-int8 unpacked", built, loaded, queries,
+                (score_rows, beam_update), path="scored path")
+    del built, sq, loaded
     torch.cuda.empty_cache()
 
     # 3. one wide search: capacity 1280 over the f32 rows
@@ -1193,6 +1459,8 @@ def main(argv: list) -> int:
         return 0
     main_path = phase_main_path()
     main_launches = main_path["launches"]
+    phase_persistence(main_path)
+    phase_host_rerank(main_path)
     lvq_path = phase_lvq_path(main_path)
     scored = phase_scored_path(main_path)["launches"]
     del main_path                       # frees the 100k index

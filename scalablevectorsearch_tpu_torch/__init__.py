@@ -3,7 +3,9 @@ scalablevectorsearch_tpu.
 
 Static Vamana build and batched search over f32/bf16/float16/int8/uint8,
 scalar-quantized (SQ) and LVQ-compressed datasets, flat exhaustive search
-for ground truth, and recall, in PyTorch on one NVIDIA H100.  The
+for ground truth, recall, and checkpoints in the JAX package's format (a
+checkpoint either package saves loads in the other), in PyTorch on one
+NVIDIA H100.  The
 per-iteration beam step is a CUDA kernel written for Hopper
 (``csrc/beam_step.cu``: beam_step, beam_step_lvq, and beam_update for
 candidates scored beforehand by ``csrc/gather_distance.cu``).  The JAX package stays the reference this port is
@@ -15,6 +17,7 @@ __version__ = "0.1.0"
 
 from .core.data import VectorDataset
 from .core.graph import NeighborGraph
+from .core.loading import dispatch_load
 from .core.io import (generate_test_dataset, read_npy, read_vecs, write_npy,
                       write_vecs)
 from .core.query_result import QueryResult
@@ -24,6 +27,7 @@ from .index.vamana.index import VamanaIndex
 from .index.vamana.params import (SearchBufferConfig, VamanaBuildParameters,
                                   VamanaSearchParameters)
 from .ops.distance import DistanceType, as_distance
+from .orchestrators.flat import Flat
 from .orchestrators.vamana import Vamana
 from .quantization.lvq import LVQDataset
 from .quantization.scalar import SQDataset
@@ -37,7 +41,7 @@ __all__ = [
     "read_vecs", "write_vecs", "read_npy", "write_npy",
     "generate_test_dataset", "k_recall_at_n",
     "DistanceType", "as_distance", "L2", "MIP", "Cosine",
-    "FlatIndex", "exhaustive_search",
+    "FlatIndex", "exhaustive_search", "Flat", "dispatch_load",
     "VamanaIndex", "VamanaBuildParameters", "VamanaSearchParameters",
     "SearchBufferConfig", "Vamana", "LVQDataset", "SQDataset",
 ]

@@ -6,18 +6,27 @@ are the JAX package's (``lib.datatypes``), so shapes match across the two
 packages; padding rows carry ``+inf`` norms so they lose every L2
 comparison made through the norm-algebra distance path.
 
-Save/load of datasets is not part of this package yet.
+Checkpoints are the JAX package's: ``save`` / ``load`` and
+``save_vectors_host`` write and read the same ``uncompressed_data`` table
+and the same ``.npy`` bytes, so either package loads what the other saved.
+A bfloat16 blob holds the raw 2-byte words under the ``'<V2'`` descr that
+``np.save`` gives an ``ml_dtypes.bfloat16`` array (numpy here has no
+bfloat16).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import uuid
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..lib import datatypes as dt
+from ..lib import saveload
 
 
 @dataclasses.dataclass
@@ -109,6 +118,58 @@ class VectorDataset:
         norms = torch.cat([self.norms_sq, self.norms_sq.new_full(
             (grow,), float("inf"))])
         return dataclasses.replace(self, vectors=vectors, norms_sq=norms)
+
+    # -- persistence -----------------------------------------------------------
+    SCHEMA = "uncompressed_data"
+    VERSION = saveload.Version(0, 0, 2)
+
+    def save(self, ctx: saveload.SaveContext) -> dict:
+        return _rows_table(ctx, self.vectors[: self.n, : self.dim])
+
+    @classmethod
+    def load(cls, table: dict, ctx: saveload.LoadContext, dtype=None,
+             capacity: Optional[int] = None, device="cuda"
+             ) -> "VectorDataset":
+        saveload.check_table(table, cls.SCHEMA, cls.VERSION)
+        x = dt.from_host_bits(ctx.load_array(table["binary_file"]),
+                              table["eltype"])
+        return cls.from_array(x, dtype=dtype or table["eltype"],
+                              capacity=capacity, device=device)
+
+
+def save_vectors_host(directory: str, rows, eltype=None) -> None:
+    """Write a :class:`VectorDataset` checkpoint from (n, dim) host rows (a
+    numpy array or a CPU tensor), stored as ``eltype`` if given: the format
+    of :meth:`VectorDataset.save`, with no dataset on the device."""
+    rows = dt.to_torch(rows)
+    if eltype is not None:
+        rows = rows.to(dt.torch_dtype(eltype))
+    table = _rows_table(saveload.SaveContext(directory), rows)
+    with open(os.path.join(directory, saveload.CONFIG_FILENAME), "w") as f:
+        json.dump(table, f, indent=2)
+
+
+def _rows_table(ctx: saveload.SaveContext, rows: torch.Tensor) -> dict:
+    """Write (n, dim) rows as one blob and return the dataset's table."""
+    host = dt.to_host_bits(rows)
+    if rows.dtype == torch.bfloat16:
+        # np.save would write the raw words under '|V2'; the JAX package's
+        # ml_dtypes array gets '<V2', and the blobs must be byte-equal
+        blob = uuid.uuid4().hex + ".npy"
+        with open(ctx.resolve(blob), "wb") as f:
+            np.lib.format.write_array_header_1_0(f, {
+                "descr": "<V2", "fortran_order": False,
+                "shape": host.shape})
+            f.write(host.tobytes())
+    else:
+        blob = ctx.save_array(host)
+    return saveload.save_table(VectorDataset.SCHEMA, VectorDataset.VERSION, {
+        "name": "vector dataset",
+        "binary_file": blob,
+        "dims": int(rows.shape[1]),
+        "num_vectors": int(rows.shape[0]),
+        "eltype": dt.eltype_name(rows.dtype),
+    })
 
 
 def _norms_sq(vectors: torch.Tensor, n: int) -> torch.Tensor:

@@ -8,17 +8,23 @@ Mutation stays functional (each update returns a new graph).  The JAX
 package drops out-of-range scatter indices (``mode="drop"``); torch raises
 on them, so every scatter here writes into one extra sink row that is
 sliced off afterwards.
+
+``save`` / ``load`` and ``save_adjacency_host`` write and read the JAX
+package's ``default_graph`` checkpoint.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..lib import datatypes as dt
+from ..lib import saveload
 
 SENTINEL = -1
 
@@ -113,3 +119,41 @@ class NeighborGraph:
     # -- stats -------------------------------------------------------------------
     def mean_degree(self) -> float:
         return float(self.degrees[: self.n].float().mean())
+
+    # -- persistence ---------------------------------------------------------------
+    SCHEMA = "default_graph"
+    VERSION = saveload.Version(0, 0, 1)
+
+    def save(self, ctx: saveload.SaveContext) -> dict:
+        return _graph_table(ctx, self.to_numpy(), self.max_degree)
+
+    @classmethod
+    def load(cls, table: dict, ctx: saveload.LoadContext,
+             device="cuda") -> "NeighborGraph":
+        """Through :meth:`from_array`: capacity ``pad_to(n, 8)`` and the
+        degrees counted from ``SENTINEL``, as in the JAX package."""
+        saveload.check_table(table, cls.SCHEMA, cls.VERSION)
+        return cls.from_array(ctx.load_array(table["binary_file"]),
+                              n=table["num_nodes"], device=device)
+
+
+def save_adjacency_host(directory: str, adjacency: np.ndarray,
+                        n: Optional[int] = None) -> None:
+    """Write a :class:`NeighborGraph` checkpoint from a host (rows, R)
+    adjacency array: the format of :meth:`NeighborGraph.save`."""
+    adjacency = np.asarray(adjacency, dtype=np.int32)
+    n = adjacency.shape[0] if n is None else n
+    table = _graph_table(saveload.SaveContext(directory), adjacency[:n],
+                         adjacency.shape[1])
+    with open(os.path.join(directory, saveload.CONFIG_FILENAME), "w") as f:
+        json.dump(table, f, indent=2)
+
+
+def _graph_table(ctx: saveload.SaveContext, adjacency: np.ndarray,
+                 max_degree: int) -> dict:
+    return saveload.save_table(NeighborGraph.SCHEMA, NeighborGraph.VERSION, {
+        "name": "neighbor graph",
+        "binary_file": ctx.save_array(adjacency),
+        "max_degree": int(max_degree),
+        "num_nodes": int(adjacency.shape[0]),
+    })

@@ -3,12 +3,15 @@
 PyTorch counterpart of ``scalablevectorsearch_tpu/index/flat.py``: each
 dataset tile is one distance matmul, and a running (B, k) top-k state is
 merged tile by tile.  This is the ground-truth engine that recall checks
-are held against.  Save/assemble is not part of this package yet.
+are held against.  ``save`` / ``assemble`` write and read the JAX
+package's checkpoint (``flat_config.json`` beside the dataset's table).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Optional
 
 import numpy as np
@@ -17,6 +20,7 @@ import torch
 from ..core.data import VectorDataset
 from ..core.query_result import QueryResult
 from ..lib import datatypes as dt
+from ..lib import saveload
 from ..ops import distance as dist_ops
 from ..ops import topk as topk_ops
 
@@ -130,6 +134,30 @@ class FlatIndex:
             pending.add(i * plan.rows, ids,
                         dist_ops.value_from_key(self.distance, keys))
         return pending.dispatched()
+
+    # -- persistence -----------------------------------------------------------
+    SCHEMA = "flat_index"
+    VERSION = saveload.Version(0, 0, 1)
+
+    def save(self, config_dir: str, data_dir: Optional[str] = None) -> None:
+        data_dir = data_dir or config_dir
+        saveload.save_to_disk(self.data, data_dir)
+        os.makedirs(config_dir, exist_ok=True)
+        table = saveload.save_table(self.SCHEMA, self.VERSION, {
+            "distance": self.distance.value,
+        })
+        with open(os.path.join(config_dir, "flat_config.json"), "w") as f:
+            json.dump(table, f, indent=2)
+
+    @classmethod
+    def assemble(cls, config_dir: str, data_dir: Optional[str] = None,
+                 device="cuda", **kwargs) -> "FlatIndex":
+        data_dir = data_dir or config_dir
+        with open(os.path.join(config_dir, "flat_config.json")) as f:
+            table = json.load(f)
+        saveload.check_table(table, cls.SCHEMA, cls.VERSION)
+        data = saveload.load_from_disk(VectorDataset, data_dir, device=device)
+        return cls(data, dist_ops.as_distance(table["distance"]), **kwargs)
 
 
 def exhaustive_search(x, queries, k: int, distance="L2",

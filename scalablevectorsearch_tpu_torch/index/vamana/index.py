@@ -12,13 +12,19 @@ bf16, float16, int8 or uint8 rows), an ``SQDataset`` or an ``LVQDataset``
 (one- or two-level; packed serving packs its codes); ``search.py`` says
 which route each takes.
 
-Not part of this package yet: save/assemble and the stream archive, and
-the host-side exact rerank.
+Checkpoints are the JAX package's: ``save`` writes the 3-directory layout
+(``vamana_config.json`` + ``graph/`` + ``data/``, each an ``svs_config.json``
+table with UUID-named ``.npy`` blobs), ``assemble`` reads one written by
+either package (the sampled-entries config included), and
+``save_stream`` / ``assemble_stream`` carry the same tree as one archive
+stream.  ``enable_host_rerank`` re-scores each query's fetched beam
+exactly on the host with the full-precision query, for int8 uploads.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from typing import Optional
 
@@ -29,12 +35,15 @@ from ...core.data import VectorDataset
 from ...core.graph import NeighborGraph
 from ...core.query_result import QueryResult
 from ...lib import datatypes as dt
+from ...lib import saveload
 from ...lib import timing
 from ...ops import distance as dist_ops
 from ..ivf.index import rerank_kernel
 from . import build as build_mod
 from . import search as search_mod
 from .params import VamanaBuildParameters, VamanaSearchParameters
+
+CONFIG_FILENAME = "vamana_config.json"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +62,41 @@ class _BatchPlan:
         return cls(rows=rows, n_batches=nb)
 
 
+def _value_from_key_host(distance, keys: np.ndarray) -> np.ndarray:
+    """``dist_ops.value_from_key`` on a host array: L2 keys are distances,
+    MIP and cosine keys negated similarities."""
+    return keys if distance == dist_ops.DistanceType.L2 else -keys
+
+
+def _host_rerank_batch(ids: np.ndarray, q: np.ndarray,
+                       vectors: np.ndarray, norms_sq: np.ndarray,
+                       distance, k: int):
+    """Exact re-scoring of a returned beam on the host, where the
+    full-precision query lives: the JAX package's numpy code (norm algebra,
+    one gather and one batched row-matvec), so both packages rank alike.
+    ``ids`` (b, k') with -1 for empty slots; returns the k best (ids,
+    distances)."""
+    safe = np.maximum(ids, 0)
+    vecs = vectors[safe]                          # (b, k', d)
+    dots = np.einsum("bkd,bd->bk", vecs, q, optimize=True)
+    if distance == dist_ops.DistanceType.MIP:
+        keys = -dots
+    else:
+        xn = norms_sq[safe]
+        qn = np.sum(q * q, axis=-1, dtype=np.float64).astype(np.float32)
+        if distance == dist_ops.DistanceType.L2:
+            keys = np.maximum(qn[:, None] - 2.0 * dots + xn, 0.0)
+        else:                                     # cosine
+            denom = np.sqrt(np.maximum(qn[:, None], 1e-30)) * \
+                np.sqrt(np.maximum(xn, 1e-30))
+            keys = -dots / denom
+    keys = np.where(ids < 0, np.inf, keys.astype(np.float32))
+    order = np.argsort(keys, axis=1, kind="stable")[:, :k]
+    ids_k = np.take_along_axis(ids, order, axis=1)
+    keys_k = np.take_along_axis(keys, order, axis=1)
+    return ids_k, _value_from_key_host(distance, keys_k)
+
+
 @dataclasses.dataclass
 class PendingSearch:
     """Batch search whose device work and device->host copies were started;
@@ -64,6 +108,9 @@ class PendingSearch:
     out_vals: np.ndarray
     pending: list = dataclasses.field(default_factory=list)
     done: Optional[torch.cuda.Event] = None
+    # (vectors, norms_sq, queries_f32, distance, k): the exact host-side
+    # re-scoring of each fetched beam (enable_host_rerank)
+    host_rerank: Optional[tuple] = None
 
     def add(self, start: int, ids: torch.Tensor, vals: torch.Tensor) -> None:
         """Queue one batch's (ids, values), starting their copy to pinned
@@ -88,6 +135,11 @@ class PendingSearch:
             stop = min(start + self.rows, self.nq)
             slots = ids_k[: stop - start].numpy()
             vals = vals_k[: stop - start].numpy()
+            if self.host_rerank is not None:
+                vectors, norms_sq, queries, distance, k = self.host_rerank
+                slots, vals = _host_rerank_batch(
+                    slots, queries[start:stop], vectors, norms_sq,
+                    distance, k)
             # k may exceed the dispatch width (k > n clamps the beam; the
             # extra columns keep their -1 / +inf prefill)
             self.out_ids[start:stop, : slots.shape[1]] = slots
@@ -100,6 +152,40 @@ def _to_pinned_async(t: torch.Tensor) -> torch.Tensor:
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     return host
+
+
+def saveload_pack_tree(directory: str, stream) -> None:
+    """Pack a checkpoint tree (config + graph/ + data/) into one archive
+    stream: an 8-byte little-endian header length, a JSON header naming the
+    files in sorted relative-path order with their sizes, then their bytes
+    (the JAX package's ``svs_tpu_tree`` format, byte for byte)."""
+    entries = {}
+    for root, _dirs, files in os.walk(directory):
+        for name in files:
+            path = os.path.join(root, name)
+            with open(path, "rb") as f:
+                entries[os.path.relpath(path, directory)] = f.read()
+    header = json.dumps({"archive": "svs_tpu_tree", "version": "v0.0.1",
+                         "files": [{"name": k, "size": len(v)}
+                                   for k, v in sorted(entries.items())]}
+                        ).encode()
+    stream.write(len(header).to_bytes(8, "little"))
+    stream.write(header)
+    for k in sorted(entries):
+        stream.write(entries[k])
+
+
+def saveload_unpack_tree(stream, directory: str) -> None:
+    """Unpack a stream written by :func:`saveload_pack_tree`."""
+    header_len = int.from_bytes(stream.read(8), "little")
+    header = json.loads(stream.read(header_len))
+    if header.get("archive") != "svs_tpu_tree":
+        raise ValueError("not an svs_tpu tree archive")
+    for entry in header["files"]:
+        path = os.path.join(directory, entry["name"])
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(stream.read(entry["size"]))
 
 
 _UPLOAD_DTYPES = {"float32": torch.float32, "float16": torch.float16,
@@ -175,6 +261,8 @@ def _search_batch(graph, data, packed, rerank_view, sampler, q, q_scale,
 class VamanaIndex:
     """Static (non-mutable) Vamana graph index."""
 
+    SCHEMA = "vamana_index_parameters"
+    VERSION = saveload.Version(0, 0, 2)  # 0.0.2: optional entry_sampler
     # per-index query transfer dtype override
     # ("float32"/"float16"/"bfloat16"/"int8"); None defers to the
     # SVT_QUERY_UPLOAD_DTYPE env default
@@ -201,6 +289,8 @@ class VamanaIndex:
         self._packed = None          # packed neighborhoods
         self._entry_sampler = None   # per-query entries
         self._entry_n = 1
+        self._entry_cfg = None       # sampler config that save persists
+        self._host_rerank = None     # (vectors, norms_sq): host rerank
         # lockstep tail compaction: finish each batch's stragglers on a
         # 1/4-size compacted slice
         self.tail_frac = 4
@@ -314,10 +404,42 @@ class VamanaIndex:
             n_samples = auto_samples(self.data.n)
         self._entry_sampler = build_sampler(self.data, n_samples, seed=seed)
         self._entry_n = n_entries
+        self._entry_cfg = {"n_samples": n_samples, "n_entries": n_entries,
+                           "seed": seed}
 
     def disable_entry_sampler(self) -> None:
         self._entry_sampler = None
         self._entry_n = 1
+        self._entry_cfg = None
+
+    # -- host-side exact rerank ----------------------------------------------------
+    def enable_host_rerank(self, host_vectors) -> None:
+        """Re-score each query's returned beam on the host with the
+        full-precision query at ``result()`` time.
+
+        Pairs with int8 query uploads (``query_upload_dtype = "int8"``):
+        the device traverses with the quantized query, and the final
+        ranking, where most of the int8 recall loss lies, is recovered
+        exactly on the host.  The search then fetches the whole retained
+        beam instead of k.  ``host_vectors`` is the (n, dim) host array the
+        index was built from (an ``np.load(..., mmap_mode="r")`` view of the
+        saved rows works); more columns than ``dim`` are cut off, fewer
+        raise."""
+        host_vectors = np.asarray(host_vectors)
+        if host_vectors.ndim != 2 or host_vectors.shape[0] != self.size \
+                or host_vectors.shape[1] < self.data.dim:
+            raise ValueError(
+                f"host_vectors of shape {host_vectors.shape} do not hold "
+                f"{self.size} rows of {self.data.dim} columns")
+        if host_vectors.dtype != np.float32:
+            host_vectors = host_vectors.astype(np.float32)
+        host_vectors = host_vectors[:, : self.data.dim]
+        norms = np.einsum("nd,nd->n", host_vectors, host_vectors,
+                          optimize=True)
+        self._host_rerank = (host_vectors, norms.astype(np.float32))
+
+    def disable_host_rerank(self) -> None:
+        self._host_rerank = None
 
     # -- search -------------------------------------------------------------------
     def search(self, queries, k: int,
@@ -377,10 +499,16 @@ class VamanaIndex:
             q_host = q_host.pin_memory()
             q_scale_host = None if q_scale_host is None else \
                 q_scale_host.pin_memory()
+        # the host rerank fetches the whole retained beam, so that the exact
+        # re-scoring has a real candidate pool
+        hr = self._host_rerank
+        k_fetch = min(capacity, self.size) if hr is not None else k_eff
         pending = PendingSearch(
             rows=plan.rows, nq=nq,
             out_ids=np.full((nq, k), -1, dtype=np.int64),
-            out_vals=np.full((nq, k), np.inf, dtype=np.float32))
+            out_vals=np.full((nq, k), np.inf, dtype=np.float32),
+            host_rerank=None if hr is None else
+            (hr[0], hr[1], queries.astype(np.float32), self.distance, k_eff))
         for i in range(plan.n_batches):
             check_cancel(cancel)
             rows = slice(i * plan.rows, (i + 1) * plan.rows)
@@ -390,7 +518,7 @@ class VamanaIndex:
             ids_k, vals_k = _search_batch(
                 self.graph, self.data, self._packed, rerank_view,
                 self._entry_sampler, q_i, scale_i, entry_ids,
-                k=k_eff, window=window, capacity=capacity,
+                k=k_fetch, window=window, capacity=capacity,
                 max_iters=max_iters, distance=self.distance,
                 tail_frac=self.tail_frac, visited_size=visited_size,
                 two_level=two_level, n_entries=self._entry_n,
@@ -409,3 +537,97 @@ class VamanaIndex:
         flat = torch.from_numpy(ids.reshape(-1)).to(self.data.device)
         vecs = self.data.get_f32(flat)[:, : self.data.dim].cpu().numpy()
         return vecs.reshape(*ids.shape, self.data.dim)
+
+    # -- persistence -----------------------------------------------------------------
+    def save(self, config_dir: str, graph_dir: Optional[str] = None,
+             data_dir: Optional[str] = None) -> None:
+        """3-directory layout: config / graph / data are loadable on their
+        own (reference index.h:795-817).  Rows and adjacency are read back
+        from the device; packed neighbourhoods are not saved."""
+        graph_dir = graph_dir or os.path.join(config_dir, "graph")
+        data_dir = data_dir or os.path.join(config_dir, "data")
+        os.makedirs(config_dir, exist_ok=True)
+        saveload.save_to_disk(self.graph, graph_dir)
+        saveload.save_to_disk(self.data, data_dir)
+        self._save_config(config_dir)
+
+    def save_host(self, config_dir: str, host_vectors) -> None:
+        """:meth:`save` with the dataset written from the caller's host rows
+        (the build input) as f32, in the same format; only the adjacency
+        is read back from the device."""
+        from ...core.data import save_vectors_host
+        from ...core.graph import save_adjacency_host
+        from ...lib.transfer import to_host_chunked
+        os.makedirs(config_dir, exist_ok=True)
+        host_vectors = np.asarray(host_vectors, np.float32)
+        if host_vectors.shape[0] != self.size:
+            raise ValueError(
+                f"host_vectors rows {host_vectors.shape[0]} != index size "
+                f"{self.size}")
+        adjacency = to_host_chunked(self.graph.adjacency)[: self.graph.n]
+        save_adjacency_host(os.path.join(config_dir, "graph"), adjacency)
+        save_vectors_host(os.path.join(config_dir, "data"), host_vectors)
+        self._save_config(config_dir)
+
+    def _save_config(self, config_dir: str) -> None:
+        build_table = (self.build_parameters.save_table()
+                       if self.build_parameters else None)
+        table = saveload.save_table(self.SCHEMA, self.VERSION, {
+            "name": "vamana index parameters",
+            "entry_point": self.entry_point,
+            "distance": self.distance.value,
+            "build_parameters": build_table,
+            "search_parameters": self._search_parameters.save_table(),
+            # a graph built with sampled entries is only navigable with
+            # the sampler on, so its config survives the reload
+            "entry_sampler": self._entry_cfg,
+        })
+        with open(os.path.join(config_dir, CONFIG_FILENAME), "w") as f:
+            json.dump(table, f, indent=2)
+
+    def save_stream(self, stream) -> None:
+        """:meth:`save` into a temporary directory, packed into ``stream``
+        by :func:`saveload_pack_tree` (reference vamana.h:457-535)."""
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            self.save(tmp)
+            saveload_pack_tree(tmp, stream)
+
+    @classmethod
+    def assemble_stream(cls, stream, **kwargs) -> "VamanaIndex":
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            saveload_unpack_tree(stream, tmp)
+            return cls.assemble(tmp, **kwargs)
+
+    @classmethod
+    def assemble(cls, config_dir: str, graph_dir: Optional[str] = None,
+                 data_dir: Optional[str] = None, dtype=None, device="cuda",
+                 **kwargs) -> "VamanaIndex":
+        """Load an index that either package saved onto ``device``: graph,
+        dataset (any registered kind; ``dtype`` converts a
+        ``VectorDataset``), parameters and the sampled-entries config.
+        Every tensor is built on the host and copied once; call
+        ``enable_packed_serving()`` again, as packed rows are not saved."""
+        from ...core.loading import dispatch_load
+        graph_dir = graph_dir or os.path.join(config_dir, "graph")
+        data_dir = data_dir or os.path.join(config_dir, "data")
+        with open(os.path.join(config_dir, CONFIG_FILENAME)) as f:
+            table = json.load(f)
+        saveload.check_table(table, cls.SCHEMA, cls.VERSION)
+        graph = saveload.load_from_disk(NeighborGraph, graph_dir,
+                                        device=device)
+        data = dispatch_load(data_dir, device=device,
+                             **({"dtype": dtype} if dtype else {}))
+        build_params = (VamanaBuildParameters.from_table(
+            table["build_parameters"]) if table.get("build_parameters")
+            else None)
+        search_params = VamanaSearchParameters.from_table(
+            table["search_parameters"])
+        index = cls(graph, data, table["entry_point"], table["distance"],
+                    build_parameters=build_params,
+                    search_parameters=search_params, **kwargs)
+        sampler_cfg = table.get("entry_sampler")
+        if sampler_cfg:
+            index.enable_entry_sampler(**sampler_cfg)
+        return index

@@ -1,6 +1,12 @@
 """Carry a Vamana index's state from the JAX package into this one.
 
-The state is plain numpy: the dataset rows ``np.asarray(idx.data.vectors)
+Two routes.  The checkpoint route: a directory (or stream) that the JAX
+package's ``VamanaIndex.save`` wrote loads here with
+``VamanaIndex.assemble(directory, device=...)`` (``assemble_stream`` for a
+stream), and this package's ``save`` writes what the JAX package's
+``assemble`` reads; datasets cross alike through ``core.loading
+.dispatch_load``.  The in-process route, below, takes the arrays of a live
+JAX index, which are plain numpy: the dataset rows ``np.asarray(idx.data.vectors)
 [:n, :dim]``, ``idx.graph.adjacency`` and ``idx.graph.degrees``,
 ``idx.entry_point`` and, for a sampled-entries index,
 ``idx._entry_sampler.ids``.  :func:`vamana_from_arrays` turns it into a

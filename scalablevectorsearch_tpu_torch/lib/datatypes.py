@@ -52,7 +52,7 @@ def torch_dtype(x) -> torch.dtype:
 def numpy_dtype(x) -> np.dtype:
     """The numpy dtype of the same name as a torch dtype (or of a name or
     numpy dtype); bfloat16 has none."""
-    name = str(torch_dtype(x)).replace("torch.", "")
+    name = eltype_name(x)
     if name == "bfloat16":
         raise ValueError("numpy has no bfloat16")
     return np.dtype(name)
@@ -124,3 +124,29 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def eltype_name(dtype) -> str:
+    """The numpy / JAX name of an element type (``"bfloat16"``, never
+    ``"torch.bfloat16"``), as checkpoints record it."""
+    return str(torch_dtype(dtype)).replace("torch.", "")
+
+
+def to_host_bits(t: torch.Tensor) -> np.ndarray:
+    """Tensor -> host array holding the same bits: bfloat16 comes back as
+    raw 2-byte words (numpy dtype ``V2``), which is how ``np.save`` stores
+    an ``ml_dtypes.bfloat16`` array; :func:`from_host_bits` inverts it."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def from_host_bits(x: np.ndarray, eltype) -> torch.Tensor:
+    """Inverse of :func:`to_host_bits`: a raw 2-byte void array (a bfloat16
+    blob as ``np.load`` reads it without ml_dtypes) is viewed as
+    ``eltype``; any other array becomes a CPU tensor as it is."""
+    if x.dtype.kind == "V":
+        return to_torch(np.ascontiguousarray(x).view(np.int16)).view(
+            torch_dtype(eltype))
+    return to_torch(x)

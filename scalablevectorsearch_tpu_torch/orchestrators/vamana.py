@@ -1,13 +1,15 @@
 """Vamana orchestrator — the user-facing API.
 
 PyTorch counterpart of ``scalablevectorsearch_tpu/orchestrators/vamana.py``:
-``build``, ``search`` / ``search_async``, the serving switches (packed
-neighborhoods, sampled entries, pop width) and the parameter accessors over
-a :class:`VamanaIndex`.  Save/assemble and the host-side rerank are not part
-of this package yet.
+``build``, ``assemble`` / ``save`` (directories and single streams, in the
+JAX package's format), ``search`` / ``search_async``, the serving switches
+(packed neighborhoods, sampled entries, host-side exact rerank, pop width)
+and the parameter accessors over a :class:`VamanaIndex`.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
@@ -40,6 +42,27 @@ class Vamana:
         return Vamana(VamanaIndex.build(parameters, data, distance,
                                         dtype=dtype, **kwargs))
 
+    @staticmethod
+    def assemble(config_dir: str, graph_dir: Optional[str] = None,
+                 data_dir: Optional[str] = None, dtype=None,
+                 **kwargs) -> "Vamana":
+        """Load an index that either package saved (reference
+        vamana.h:420-454); ``device`` defaults to ``"cuda"``."""
+        return Vamana(VamanaIndex.assemble(config_dir, graph_dir, data_dir,
+                                           dtype=dtype, **kwargs))
+
+    @staticmethod
+    def assemble_stream(stream, **kwargs) -> "Vamana":
+        return Vamana(VamanaIndex.assemble_stream(stream, **kwargs))
+
+    def save(self, config_dir: str, graph_dir: Optional[str] = None,
+             data_dir: Optional[str] = None) -> None:
+        self._index.save(config_dir, graph_dir, data_dir)
+
+    def save_stream(self, stream) -> None:
+        """(reference vamana.h:457 stream save)"""
+        self._index.save_stream(stream)
+
     # -- search ---------------------------------------------------------------
     def search(self, queries, n_neighbors: int) -> QueryResult:
         return self._index.search(queries, n_neighbors)
@@ -61,6 +84,14 @@ class Vamana:
 
     def disable_entry_sampler(self) -> None:
         self._index.disable_entry_sampler()
+
+    def enable_host_rerank(self, host_vectors) -> None:
+        """Exact host-side re-scoring of each returned beam (see
+        ``VamanaIndex.enable_host_rerank``), for int8 query uploads."""
+        self._index.enable_host_rerank(host_vectors)
+
+    def disable_host_rerank(self) -> None:
+        self._index.disable_host_rerank()
 
     @property
     def pop_width(self) -> int:

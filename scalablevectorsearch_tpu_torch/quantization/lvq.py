@@ -26,7 +26,11 @@ in f32.
 ``LVQDataset`` follows the dataset protocol of ``core.data.VectorDataset``
 (get / get_f32 / norms_sq / norms_of / tile_keys / with_capacity), so the
 flat and Vamana indexes take it as they take a ``VectorDataset``.
-Save/load is not part of this package yet.
+``save`` / ``load`` and ``compress_and_save_host`` write and read the JAX
+package's ``lvq_dataset`` checkpoint.  Loading goes through
+``from_codes``, which recomputes the reconstruction norms on the host in
+float64 as ``compress`` does, so a saved dataset loads back bit for bit;
+the JAX package recomputes them in f32 on its device (within 1e-6).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import numpy as np
 import torch
 
 from ..lib import datatypes as dt
+from ..lib import saveload
 
 
 def _pack4(codes: np.ndarray) -> np.ndarray:
@@ -312,6 +317,74 @@ class LVQDataset:
         denom = q_norms[:, None].clamp_min(1e-30).sqrt() * \
             torch.where(torch.isinf(ns), 1.0, ns).sqrt()[None, :]
         return -dots / denom + inf_mask
+
+    # -- persistence -------------------------------------------------------------
+    SCHEMA = "lvq_dataset"
+    VERSION = saveload.Version(0, 0, 2)
+
+    def save(self, ctx: saveload.SaveContext) -> dict:
+        """v0.0.2: the padded (nibble-packed at 4 bits) code rows."""
+        def blob(t):
+            return ctx.save_array(t.cpu().numpy())
+
+        table = {
+            "name": "lvq dataset",
+            "codes": blob(self.codes[: self.n]),
+            "scales": blob(self.scales[: self.n]),
+            "biases": blob(self.biases[: self.n]),
+            "mean": blob(self.mean[: self.dim]),
+            "dims": self.dim,
+            "num_vectors": self.n,
+            "bits": self.bits,
+            "residual_bits": self.residual_bits,
+        }
+        if self.residual_bits:
+            table["res_codes"] = blob(self.res_codes[: self.n])
+            table["res_scales"] = blob(self.res_scales[: self.n])
+        return saveload.save_table(self.SCHEMA, self.VERSION, table)
+
+    @classmethod
+    def load(cls, table: dict, ctx: saveload.LoadContext, device="cuda",
+             **_) -> "LVQDataset":
+        """Reads v0.0.2 (padded, packed rows) and v0.0.1 (unpadded,
+        unpacked ``(n, dim)`` rows), for both levels; the capacity is
+        ``pad_to(n, 32)`` as in the JAX package."""
+        saveload.check_table(table, cls.SCHEMA, cls.VERSION)
+        bits = int(table.get("bits", 8))
+        residual_bits = int(table.get("residual_bits", 0))
+        dim = int(table["dims"])
+
+        def blob(name, dtype=np.float32):
+            return ctx.load_array(table[name]).astype(dtype)
+
+        res = {}
+        if residual_bits:
+            res = dict(res_codes=_stored_codes(blob("res_codes", np.int8),
+                                               residual_bits, dim),
+                       res_scales=blob("res_scales"))
+        return cls.from_codes(
+            _stored_codes(blob("codes", np.int8), bits, dim), blob("scales"),
+            blob("biases"), blob("mean"), bits=bits,
+            residual_bits=residual_bits, device=device, **res)
+
+
+def _stored_codes(codes: np.ndarray, bits: int, dim: int) -> np.ndarray:
+    """(n, dim) unpacked codes from a saved code blob: v0.0.2 rows are
+    padded to the lane width and nibble-packed at 4 bits; v0.0.1 rows are
+    ``(n, dim)`` as they are.  The layouts are told apart by width, as the
+    JAX package tells them apart."""
+    if codes.shape[1] == dt.padded_dim(dim) // (8 // bits) and bits == 4:
+        codes = _unpack4(torch.from_numpy(codes)).numpy()
+    return codes[:, :dim]
+
+
+def compress_and_save_host(directory: str, x, bits: int = 8,
+                           residual_bits: int = 0) -> None:
+    """Compress and write an :class:`LVQDataset` checkpoint on the host,
+    with no dataset on the device: the bytes the JAX package's function of
+    this name writes (v0.0.2, the format of :meth:`LVQDataset.save`)."""
+    saveload.save_to_disk(LVQDataset.compress(x, bits, residual_bits,
+                                              device="cpu"), directory)
 
 
 def _check_bits(bits: int, residual_bits: int) -> None:

@@ -23,7 +23,8 @@ codes take an f32 matmul, as in the JAX package.
 ``SQDataset`` follows the dataset protocol of ``core.data.VectorDataset``
 (get / get_f32 / norms_sq / norms_of / tile_keys / with_capacity), so the
 flat and Vamana indexes take it as they take a ``VectorDataset``.
-Save/load is not part of this package yet.
+``save`` / ``load`` write and read the JAX package's ``sq_dataset``
+checkpoint (codes ``[:n, :dim]``, eltype, scale, bias).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from ..lib import datatypes as dt
+from ..lib import saveload
 
 _CODE_DTYPES = (np.dtype(np.int8), np.dtype(np.uint8), np.dtype(np.int16))
 _EXACT_BLOCK = 256     # columns per exact f32 block of 8-bit code products
@@ -217,6 +219,33 @@ class SQDataset:
 
     def max_abs_error(self) -> float:
         return self.scale / 2.0
+
+    # -- persistence ------------------------------------------------------------
+    SCHEMA = "sq_dataset"
+    VERSION = saveload.Version(0, 0, 1)
+
+    def save(self, ctx: saveload.SaveContext) -> dict:
+        blob = ctx.save_array(self.codes[: self.n, : self.dim].cpu().numpy())
+        return saveload.save_table(self.SCHEMA, self.VERSION, {
+            "name": "scalar quantized dataset",
+            "binary_file": blob,
+            "dims": self.dim,
+            "num_vectors": self.n,
+            "eltype": dt.eltype_name(self.dtype),
+            "scale": self.scale,
+            "bias": self.bias,
+        })
+
+    @classmethod
+    def load(cls, table: dict, ctx: saveload.LoadContext, device="cuda",
+             **_) -> "SQDataset":
+        """Through :meth:`from_codes`, so the capacity is ``pad_to(n, 32)``
+        as in the JAX package."""
+        saveload.check_table(table, cls.SCHEMA, cls.VERSION)
+        eltype = np.dtype(table.get("eltype", "int8"))
+        codes = ctx.load_array(table["binary_file"]).astype(eltype)
+        return cls.from_codes(codes, table["scale"], table["bias"],
+                              device=device)
 
 
 def _code_dots(qf: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:

@@ -517,3 +517,64 @@ def test_id_at_visited_bit_traps(cuda, route):
     assert "valid ids ran" in proc.stdout, proc.stderr[-2000:]
     assert "no trap" not in proc.stdout
     assert proc.returncode != 0
+
+
+def _dataset_on_card(kind: str, data: np.ndarray):
+    if kind in ("float32", "bfloat16", "float16"):
+        return svt.VectorDataset.from_array(data, dtype=kind)
+    if kind == "int8":
+        return svt.VectorDataset.from_array(
+            np.clip(np.rint(data * 30), -128, 127).astype(np.int8))
+    if kind == "sq8":
+        return svt.SQDataset.compress(data)
+    bits, res = {"lvq8": (8, 0), "lvq4x8": (4, 8)}[kind]
+    return svt.LVQDataset.compress(data, bits=bits, residual_bits=res)
+
+
+def _tensors(obj) -> dict:
+    import dataclasses
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), torch.Tensor)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "float16", "int8",
+                                  "sq8", "lvq8", "lvq4x8"])
+def test_checkpoint_round_trip_on_gpu(cuda, kind, tmp_path):
+    """An index built on the card, saved and assembled onto the card: every
+    tensor of graph, dataset and sampler is on the card and equal to the
+    live index's, and the search gives identical ids and distances."""
+    data, queries = svt.generate_test_dataset(600, 40, 48, seed=11)
+    params = svt.VamanaBuildParameters(graph_max_degree=16, window_size=24,
+                                       max_candidate_pool_size=60,
+                                       prune_to=14)
+    live = svt.Vamana.build(params, _dataset_on_card(kind, data), "l2",
+                            sampled_entries=True)
+    live.search_window_size = 16
+    live.save(str(tmp_path))
+    loaded = svt.Vamana.assemble(str(tmp_path))
+    for part in ("graph", "data", "_entry_sampler"):
+        got = _tensors(getattr(loaded.index, part))
+        want = _tensors(getattr(live.index, part))
+        assert got.keys() == want.keys()
+        for name, t in got.items():
+            assert t.is_cuda, (part, name)
+            assert torch.equal(t, want[name]), (part, name)
+    want, got = live.search(queries, 10), loaded.search(queries, 10)
+    np.testing.assert_array_equal(got.ids, want.ids)
+    np.testing.assert_array_equal(got.distances, want.distances)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fixture,bits,res", [("lvq8_v001", 8, 0),
+                                              ("lvq4x8_v001", 4, 8)])
+def test_legacy_lvq_fixtures_load_on_gpu(cuda, fixture, bits, res):
+    """Checkpoints the JAX package wrote in the v0.0.1 layout load straight
+    onto the card and decode within 1e-5 of a fresh compress."""
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    got = svt.dispatch_load(os.path.join(root, "data", "legacy", fixture))
+    assert all(t.is_cuda for t in _tensors(got).values())
+    x = np.random.default_rng(7).normal(size=(48, 20)).astype(np.float32)
+    fresh = svt.LVQDataset.compress(x, bits=bits, residual_bits=res)
+    np.testing.assert_allclose(got.to_numpy(), fresh.to_numpy(), atol=1e-5)

@@ -20,7 +20,8 @@ PORT_MODULES = [
     "scalablevectorsearch_tpu_torch",
     "scalablevectorsearch_tpu_torch.interop, "
     "scalablevectorsearch_tpu_torch.index.vamana.entry, "
-    "scalablevectorsearch_tpu_torch.index.vamana.packed",
+    "scalablevectorsearch_tpu_torch.index.vamana.packed, "
+    "scalablevectorsearch_tpu_torch.lib.transfer",
 ]
 
 

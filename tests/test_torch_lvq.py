@@ -253,6 +253,37 @@ def test_packed_serving_bit_identical_to_unpacked(served, bits, res):
         np.testing.assert_array_equal(plain.distances, packed.distances)
 
 
+def test_two_level_explicit_split_matches_jax(served, monkeypatch):
+    """LVQ8x8 with an explicit window/capacity split (12, 20): both packages
+    retain the 20 slots given, not the 2x window a defaulted config
+    retains, and agree on the ids."""
+    from scalablevectorsearch_tpu.index.vamana import params as jparams
+    from scalablevectorsearch_tpu_torch.index.vamana import index as tindex
+    _data, queries, indexes = served
+    jindex, tv = indexes[(8, 8)]
+    capacities = []
+
+    def spy(*args, capacity, **kwargs):
+        capacities.append(capacity)
+        return greedy_search(*args, capacity=capacity, **kwargs)
+
+    greedy_search = tindex.search_mod.greedy_search
+    monkeypatch.setattr(tindex.search_mod, "greedy_search", spy)
+    split = jparams.VamanaSearchParameters(
+        buffer_config=jparams.SearchBufferConfig(12, 20))
+    want = jindex.search(queries, 10, parameters=split)
+    got = tv.search(queries, 10, parameters=svt.VamanaSearchParameters(
+        buffer_config=svt.SearchBufferConfig(12, 20)))
+    tv.search_window_size = 12
+    tv.search(queries, 10)
+    assert capacities == [20, 24]
+    same = np.sort(got.ids, 1) == np.sort(want.ids, 1)
+    assert same.mean() >= 0.98, same.mean()
+    np.testing.assert_allclose(np.sort(got.distances, 1),
+                               np.sort(want.distances, 1), rtol=1e-3,
+                               atol=1e-3)
+
+
 def test_lvq8_build_matches_jax_build(lvq8_graph):
     """The port's LVQ-8 build on the CPU against the JAX build on the same
     data: recall within 0.01 at three windows; mean degree within 2%."""

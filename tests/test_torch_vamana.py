@@ -182,3 +182,64 @@ def test_capacity_above_kernel_limit_raises(fixed_graph):
         jindex.search_window_size = tindex.search_window_size = 20
     same = np.sort(got.ids, 1) == np.sort(want.ids, 1)
     assert same.mean() >= 0.98, same.mean()
+
+
+def test_query_upload_dtype_attribute_overrides_env(slice_indexes,
+                                                    monkeypatch):
+    """A per-index ``query_upload_dtype`` wins over SVT_QUERY_UPLOAD_DTYPE
+    in both packages: int8 uploads set on the index under a float32 env
+    give the env's int8 search, and the JAX index's ids with the same
+    settings."""
+    _data, queries, _gt, jv, _tv = slice_indexes
+    tindex = carry(jv.index)
+    jv.search_window_size = tindex.search_window_size = 16
+    monkeypatch.setenv("SVT_QUERY_UPLOAD_DTYPE", "int8")
+    env_int8 = tindex.search(queries, 10)
+    monkeypatch.setenv("SVT_QUERY_UPLOAD_DTYPE", "float32")
+    f32 = tindex.search(queries, 10)
+    jv.index.query_upload_dtype = tindex.query_upload_dtype = "int8"
+    try:
+        want, got = jv.search(queries, 10), tindex.search(queries, 10)
+    finally:
+        del jv.index.query_upload_dtype
+    np.testing.assert_array_equal(got.ids, env_int8.ids)
+    np.testing.assert_array_equal(got.distances, env_int8.distances)
+    assert not np.array_equal(got.distances, f32.distances)
+    same = np.sort(got.ids, 1) == np.sort(want.ids, 1)
+    assert same.mean() >= 0.98, same.mean()
+
+
+def test_int8_upload_with_host_rerank_matches_jax(slice_indexes):
+    """int8 uploads with the exact host-side rerank of the fetched beam:
+    the JAX index's ids with the same settings, the same exact distances
+    where the ids agree, and no recall below int8 without the rerank.
+    The port is given rows with extra columns, which it cuts off."""
+    data, queries, gt, jv, _tv = slice_indexes
+    tindex = carry(jv.index)
+    jv.search_window_size = tindex.search_window_size = 16
+    jv.index.query_upload_dtype = tindex.query_upload_dtype = "int8"
+    try:
+        plain = svt.k_recall_at_n(gt, tindex.search(queries, 10))
+        jv.enable_host_rerank(data)
+        tindex.enable_host_rerank(np.pad(data, ((0, 0), (0, 16))))
+        want, got = jv.search(queries, 10), tindex.search(queries, 10)
+    finally:
+        jv.disable_host_rerank()
+        del jv.index.query_upload_dtype
+    same = np.sort(got.ids, 1) == np.sort(want.ids, 1)
+    assert same.mean() >= 0.98, same.mean()
+    exact = got.ids == want.ids
+    np.testing.assert_allclose(got.distances[exact], want.distances[exact],
+                               rtol=1e-6)
+    assert svt.k_recall_at_n(gt, got) >= plain
+
+
+@pytest.mark.parametrize("cut", ["columns", "rows", "flat"])
+def test_host_rerank_rejects_host_vectors_of_wrong_shape(slice_indexes,
+                                                         cut):
+    data, _queries, _gt, _jv, tv = slice_indexes
+    bad = {"columns": data[:, :-1], "rows": data[:-1],
+           "flat": data.reshape(-1)}[cut]
+    with pytest.raises(ValueError, match="host_vectors"):
+        tv.enable_host_rerank(bad)
+    assert tv.index._host_rerank is None
