@@ -70,13 +70,26 @@ Phases, one line of detail each (any failure exits non-zero):
      rows: gather_score_l2_partial launches, beam_update does not; recall
      at least the f32 index's at window 128); the float16 dataset and the
      SQ-int8 index saved, assembled and served identically;
-  11. golden gate: the L2, MIP and cosine rows of
+  11. dynamic path, over the main path's data: a DynamicVamana built over
+     80,000 rows (ReferenceDataset seed 0) in storage for 84,000 with the
+     main path's parameters, bf16 packed serving and sampled entries; four
+     cycles of 5,000 adds (the first grows the storage in place) and 5,000
+     deletes, consolidate after cycles 2 and 4 (affected vertices counted),
+     compact at the end; after the build and every step the window sweep
+     to recall@10 >= 0.9 against the exact search over the live set, with
+     every search launching beam_step and returning only live ids, and QPS
+     at that window (host clock, noisy); seconds, launches and peak device
+     memory of every step; after cycle 3's delete a save / assemble round
+     trip with the deleted slots pending (identical ids and distances);
+     DynamicFlat through the same mutations, recall@10 >= 0.999 with every
+     miss a tie of the 10th distance;
+  12. golden gate: the L2, MIP and cosine rows of
      data/golden/vamana_reference.json within +-0.05 recall (GOLDEN_TOL).
-Each path (6-10) starts with every launch count at 0 and reads them at
+Each path (6-11) starts with every launch count at 0 and reads them at
 its end.  The line before the last is the JSON summary of the five
 kernels (beam_step, beam_step_lvq, beam_update, score_rows,
-gather_score_l2_partial); the last line is ``{"ok": true, "device":
-{...}}``.
+gather_score_l2_partial; beam_step's launches are the main and the
+dynamic path's); the last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --kernels-only --other-gather PATH.cu
@@ -114,6 +127,13 @@ BUILD_SHAPE = (2500, 100, 128, 128, 100, 4)
 TAIL_SHAPE = (418, 16, 128, 128, 12, 4)
 STEP_SHAPES = (("serving", SERVING_SHAPE), ("build", BUILD_SHAPE),
                ("tail", TAIL_SHAPE))
+# shapes only the dynamic path gives beam_step, checked against the plain
+# version but not timed: its searches widen the beam to max(window, 2k) = 20
+# slots (a batch of 2048 and the compacted tail), and each add_points round
+# runs 125 rows at the build window
+DYNAMIC_CHECK_SHAPES = (("dynamic serving", (2048, 20, 128, 128, 11, 4)),
+                        ("dynamic tail", (418, 20, 128, 128, 11, 4)),
+                        ("dynamic add", (125, 100, 128, 128, 100, 4)))
 WINDOWS = (11, 12, 13, 14, 16, 20, 24, 32, 48, 64, 96, 128)
 # Recall tolerance per golden row.  The cosine row moves by up to 0.097 in
 # the JAX package itself when only the build batch size changes, but the
@@ -132,6 +152,9 @@ LVQ_DEAD = {"serving": 28, "build": 0, "tail": 28}   # n_dead per shape
 SCORE_SHAPE = (2048, 128, 128)          # B, K, d of the scoring kernels
 TABLE_ROWS = 100_000
 WIDE_CAPACITY = 1280
+# dynamic phase: initial rows, their storage (the first add grows it), and
+# the rows added and deleted in each of its four cycles
+DYN_ROWS, DYN_CAPACITY, DYN_BATCH = 80_000, 84_000, 5000
 SOURCES = ("beam_step", "gather_distance")
 
 
@@ -476,16 +499,63 @@ def step_bound(args, m: int, flops_per_value: int) -> dict:
                     flops_per_value * (b * k - dead_rows) * row_values)
 
 
+def unexplained_rows(args, got, want, rows_off, window: int,
+                     tol: float) -> list:
+    """Rows of ``rows_off`` where the kernel's beam or pops differ from the
+    plain version's by more than near-ties.  A row is explained when every
+    id of the kernel's beam carries, at its slot, the plain version's key
+    for that id (from the input beam or the plain pool) within ``tol``, no
+    id repeats, and the kernel's pops are unvisited ids of its beam inside
+    the window whose plain keys equal the plain pops' keys within
+    ``tol``."""
+    from scalablevectorsearch_tpu_torch.ops.kernels.beam_step import ID_MASK
+    beam_keys, beam_packed = args[0], args[1]
+    gk, gp, gpop = got[:3]
+    wpop, wpk, wpi = want[2:]
+    bad = []
+    for r in torch.nonzero(rows_off).flatten().tolist():
+        key_of = {int(i): k for i, k in zip(wpi[r].tolist(), wpk[r].tolist())
+                  if i >= 0 and np.isfinite(k)}
+        old_vis = {}
+        for k, p in zip(beam_keys[r].tolist(), beam_packed[r].tolist()):
+            if np.isfinite(k):
+                key_of[p & ID_MASK] = k
+                old_vis[p & ID_MASK] = p >> 30
+        slots = [(k, p & ID_MASK, p >> 30) for k, p in
+                 zip(gk[r].tolist(), gp[r].tolist()) if np.isfinite(k)]
+        ids = [i for _k, i, _v in slots]
+        ok = len(set(ids)) == len(ids) and all(
+            i in key_of and abs(key_of[i] - k) <= tol * (1 + abs(k))
+            for k, i, _v in slots)
+        popped = [i for i in gpop[r].tolist() if i >= 0]
+        in_window = {i: v for (_k, i, v) in slots[:window]}
+        ok = ok and all(in_window.get(i) == 1 and old_vis.get(i, 0) == 0
+                        for i in popped)
+        want_pops = sorted(key_of.get(i, np.inf)
+                           for i in wpop[r].tolist() if i >= 0)
+        got_pops = sorted(key_of.get(i, np.inf) for i in popped)
+        ok = ok and len(got_pops) == len(want_pops) and all(
+            abs(a - b) <= tol * (1 + abs(b))
+            for a, b in zip(got_pops, want_pops))
+        if not ok:
+            bad.append(r)
+    return bad
+
+
 def phase_kernels() -> dict:
-    """beam_step kernel vs beam_step_plain on the card.  Grid inputs: all
+    """beam_step kernel vs beam_step_plain on the card, at STEP_SHAPES
+    (timed) and DYNAMIC_CHECK_SHAPES (checked only).  Grid inputs: all
     five outputs identical.  Real-valued inputs: keys within rtol/atol 1e-5
     (f32 rows) or 1e-3 (bf16 rows), the pool ids identical, and the beam
     ids and pops identical except where two keys are within rounding of
-    each other (reported; at most 0.1% of rows)."""
+    each other: every such row shown a near-tie by ``unexplained_rows``,
+    and at most 0.1% of the rows of each timed case and of the dynamic
+    shapes' cases together (reported)."""
     from scalablevectorsearch_tpu_torch.ops.kernels import beam_step as bs
     rng = np.random.default_rng(0)
-    max_err, timings, failures, swapped, rows = 0.0, {}, [], 0, 0
-    for label, shape in STEP_SHAPES:
+    max_err, timings, failures = 0.0, {}, []
+    swapped, rows = [0, 0], [0, 0]     # near-tie rows: [untimed, timed]
+    for label, shape in STEP_SHAPES + DYNAMIC_CHECK_SHAPES:
         _B, _C, _K, _d, window, m = shape
         for vdt in (torch.float32, torch.bfloat16):
             tol = 1e-5 if vdt == torch.float32 else 1e-3
@@ -514,11 +584,18 @@ def phase_kernels() -> dict:
                         or not torch.equal(gpi, wpi):
                     failures.append(f"{label}/{vdt}/m{metric} real keys/pool")
                 rows_off = ((gp != wp) & fin).any(1) | (gpop != wpop).any(1)
-                swapped += int(rows_off.sum())
-                rows += rows_off.numel()
-                if float(rows_off.float().mean()) > 1e-3:
+                bad = unexplained_rows(real, got, want, rows_off, window, tol)
+                if bad:
+                    failures.append(f"{label}/{vdt}/m{metric} real ids: rows "
+                                    f"{bad[:5]} differ beyond near-ties")
+                timed = (label, shape) in STEP_SHAPES
+                swapped[timed] += int(rows_off.sum())
+                rows[timed] += rows_off.numel()
+                if timed and float(rows_off.float().mean()) > 1e-3:
                     failures.append(f"{label}/{vdt}/m{metric} real ids "
                                     f"{int(rows_off.sum())} rows")
+            if not timed:
+                continue
             args = make_case(rng, shape, grid=False)
             args[2] = args[2].to(vdt)
             kw = dict(metric=0, window=window, m=m)
@@ -534,13 +611,18 @@ def phase_kernels() -> dict:
                 = t
             log(f"kernels: beam_step {label} B,C,K,d={shape[:4]} {vdt} L2: "
                 + describe(t))
+    if swapped[False] > 1e-3 * rows[False]:
+        failures.append(f"dynamic shapes: {swapped[False]} near-tie rows of "
+                        f"{rows[False]}")
     if failures:
         raise AssertionError("beam_step kernel vs plain: "
                              + "; ".join(failures))
-    log(f"kernels: beam_step matches plain: 3 shapes x 2 dtypes x 3 "
-        f"metrics; grid inputs identical, real inputs max_abs_err "
-        f"{max_err:.3g}, near-tie rows with other ids or pops {swapped} of "
-        f"{rows}")
+    log(f"kernels: beam_step matches plain: "
+        f"{len(STEP_SHAPES) + len(DYNAMIC_CHECK_SHAPES)} shapes (3 timed) x "
+        f"2 dtypes x 3 metrics; grid inputs identical, real inputs "
+        f"max_abs_err {max_err:.3g}, near-tie rows with other ids or pops "
+        f"{swapped[True]} of {rows[True]} at the timed shapes, "
+        f"{swapped[False]} of {rows[False]} at the dynamic shapes")
     return {"max_abs_err": max_err, "timings": timings}
 
 
@@ -688,13 +770,18 @@ def main_path_params():
         max_candidate_pool_size=300, prune_to=28)
 
 
-def sweep(index, queries, gt, label: str):
-    """First window of WINDOWS with recall@10 >= 0.9; fails if none."""
+def sweep(index, queries, gt, label: str, check=None):
+    """First window of WINDOWS with recall@10 >= 0.9; fails if none.
+    ``check(result, window)``, where given, runs on every search's result
+    first."""
     import scalablevectorsearch_tpu_torch as svt
     steps = []
     for w in WINDOWS:
         index.search_window_size = w
-        recall = svt.k_recall_at_n(gt, index.search(queries, 10))
+        res = index.search(queries, 10)
+        if check is not None:
+            check(res, w)
+        recall = svt.k_recall_at_n(gt, res)
         steps.append(f"{w}:{recall:.4f}")
         if recall >= 0.9:
             log(f"{label}: recall@10 sweep " + " ".join(steps))
@@ -741,7 +828,7 @@ def tree_bytes(path: str) -> int:
                for root, _dirs, files in os.walk(path) for name in files)
 
 
-def round_trip(label: str, save, load):
+def round_trip(label: str, save, load, path: str = "persistence"):
     """``save(directory)`` then ``load(directory)`` in a fresh temporary
     directory; logs the seconds of each and the checkpoint's bytes and
     returns what ``load`` gave."""
@@ -754,8 +841,8 @@ def round_trip(label: str, save, load):
         out = load(tmp)
         sync()
         load_s = time.perf_counter() - t0
-    log(f"persistence: {label}: save {save_s:.3f} s, assemble {load_s:.3f} "
-        f"s, {size} bytes")
+    log(f"{path}: {label}: save {save_s:.3f} s, assemble {load_s:.3f} s, "
+        f"{size} bytes")
     return out
 
 
@@ -1416,6 +1503,172 @@ def phase_scored_path(main_path: dict) -> dict:
     return out
 
 
+def phase_dynamic(main_path: dict) -> int:
+    """The dynamic index at the main path's scale on the card: an 80k build
+    in storage for 84k, bf16 packed serving and sampled entries, four
+    cycles of 5,000 adds (the first grows the storage) and 5,000 deletes,
+    consolidation after cycles 2 and 4, a compact; after every step the
+    window sweep against the exact search over the live set (no deleted or
+    unknown id) and QPS there (host clock, noisy); a save / assemble round
+    trip with deleted slots pending; DynamicFlat through the same
+    mutations, exact at the end.  Counts start at 0 here; beam_step must
+    launch in the build, every add and every search.  Returns the phase's
+    beam_step launches."""
+    import scalablevectorsearch_tpu_torch as svt
+    from scalablevectorsearch_tpu_torch.index.vamana.dynamic import (
+        SLOT_DELETED, SLOT_VALID, _affected_by_deleted)
+    from scalablevectorsearch_tpu_torch.ops.kernels.beam_step import (
+        beam_step, beam_step_lvq)
+    data, queries = main_path["data"], main_path["queries"]
+    beam_step.launches = beam_step_lvq.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    ref = svt.ReferenceDataset(data, seed=0)
+    pts, ids = ref.new_batch(DYN_ROWS)
+    t0 = time.perf_counter()
+    dv = svt.DynamicVamana.build(main_path_params(), pts, ids, "l2",
+                                 capacity=DYN_CAPACITY)
+    sync()
+    build_s = time.perf_counter() - t0
+    index = dv.index
+    log(f"dynamic: build {DYN_ROWS}x{data.shape[1]} in {build_s:.2f} s "
+        f"(capacity {index.data.capacity}), mean degree "
+        f"{index.graph.mean_degree():.3f}, beam_step launches "
+        f"{beam_step.launches}")
+    if beam_step.launches == 0:
+        raise AssertionError("dynamic: beam_step not launched in the build")
+    flat = svt.DynamicFlat.build(pts, ids, "l2")
+    dv.enable_packed_serving()
+    dv.enable_entry_sampler()
+
+    def searched(label) -> None:
+        """The sweep over the live set, every search launching beam_step
+        and returning live ids only; then QPS at the window reached."""
+        before = beam_step.launches
+
+        def check(res, w):
+            nonlocal before
+            if beam_step.launches == before:
+                raise AssertionError(f"dynamic: {label}: beam_step not "
+                                     f"launched in the search at window {w}")
+            before = beam_step.launches
+            ref.check_ids(res)
+
+        sweep(dv, queries, ref.groundtruth(queries, 10), f"dynamic: {label}",
+              check)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            ref.check_ids(dv.search_async(queries, 10).result())
+            times.append(time.perf_counter() - t0)
+        log(f"dynamic: {label}: size {dv.size}, window "
+            f"{dv.search_window_size}: "
+            f"{len(queries) / statistics.median(times):.1f} QPS (host clock, "
+            f"noisy)")
+
+    def step(label, fn) -> int:
+        """Run one mutation (seconds, beam_step launches, peak device
+        memory), then the sweep over the live set; returns the launches."""
+        torch.cuda.reset_peak_memory_stats()
+        before = beam_step.launches
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        launches = beam_step.launches - before
+        log(f"dynamic: {label} in {time.perf_counter() - t0:.3f} s (capacity "
+            f"{index.data.capacity}, high-water {index.data.n}), beam_step "
+            f"launches {launches}, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        searched(label)
+        return launches
+
+    def assemble(tmp):
+        out = svt.DynamicVamana.assemble(tmp, device=index.data.device)
+        out.enable_packed_serving()
+        out.search_window_size = dv.search_window_size
+        return out
+
+    searched("build")
+    for cycle in range(1, 5):
+        pts, ids = ref.new_batch(DYN_BATCH)
+        if step(f"cycle {cycle} add_points {DYN_BATCH}",
+                lambda: dv.add_points(pts, ids)) == 0:
+            raise AssertionError(f"dynamic: cycle {cycle}: add_points "
+                                 f"launched no beam_step")
+        flat.add_points(pts, ids)
+        dead = ref.delete_batch(DYN_BATCH)
+        step(f"cycle {cycle} delete_points {DYN_BATCH}",
+             lambda: dv.delete_points(dead))
+        flat.delete_points(dead)
+        if cycle == 3:
+            pending = int((index.status == SLOT_DELETED).sum())
+            loaded = round_trip(f"round trip with {pending} deleted slots "
+                                f"pending", dv.save, assemble, path="dynamic")
+            if loaded.index._sampler_cfg != index._sampler_cfg or \
+                    not np.array_equal(loaded.index.status[:index.data.n],
+                                       index.status[:index.data.n]):
+                raise AssertionError("dynamic: the assembled copy's state "
+                                     "differs")
+            same_search("round trip", dv, loaded, queries, (beam_step,),
+                        path="dynamic")
+        if cycle in (2, 4):
+            valid = torch.from_numpy(index.status == SLOT_VALID).to(
+                index.data.device)
+            affected = int(_affected_by_deleted(
+                index.graph.adjacency, index.deleted_mask, valid).sum())
+            log(f"dynamic: cycle {cycle}: {affected} vertices affected by "
+                f"{int(index.deleted_mask.sum())} deleted slots")
+            step(f"cycle {cycle} consolidate", dv.consolidate)
+    step("compact", dv.compact)
+    flat.compact()
+    if index.data.n != len(ref.live) or dv.size != len(ref.live):
+        raise AssertionError("dynamic: compact left empty slots")
+    dynamic_flat_check(flat, queries, ref)
+    log(f"dynamic: launches beam_step {beam_step.launches}, beam_step_lvq "
+        f"{beam_step_lvq.launches}")
+    return beam_step.launches
+
+
+def dynamic_flat_check(flat, queries, ref, sample: int = 256) -> None:
+    """DynamicFlat after the same mutations: recall@10 >= 0.999 against
+    the exact search over the live set, and every miss a tie of the 10th
+    distance; for the first ``sample`` queries, every returned distance
+    equal to the float64 distance of its row on the host.  Distances are
+    f32 norm algebra, whose rounding is a few ulps of ||q||^2 + ||x||^2, so
+    both checks allow 8 f32 epsilons of that sum."""
+    import scalablevectorsearch_tpu_torch as svt
+    res = flat.search(queries, 10)
+    ref.check_ids(res)
+    gt = ref.groundtruth(queries, 10)
+    recall = svt.k_recall_at_n(gt, res)
+    eps = 8 * np.finfo(np.float32).eps
+
+    def host_dist(qi, ids):
+        """float64 distances of query qi to the rows of external ids, and
+        the rounding allowed to each."""
+        q = queries[qi].astype(np.float64)
+        x = ref.pool[[ref.live[int(e)] for e in ids]].astype(np.float64)
+        return ((x - q) ** 2).sum(1), eps * ((x ** 2).sum(1) + q @ q)
+
+    for qi in range(min(sample, len(queries))):
+        want, tol = host_dist(qi, res.ids[qi])
+        if np.any(np.abs(res.distances[qi] - want) > tol):
+            raise AssertionError(f"dynamic flat: query {qi} returns "
+                                 f"distances {res.distances[qi]}, the host "
+                                 f"gives {want}")
+    for qi in np.nonzero((np.sort(gt, 1) != np.sort(res.ids, 1)).any(1))[0]:
+        missed, _ = host_dist(qi, np.setdiff1d(gt[qi], res.ids[qi]))
+        kth = float(res.distances[qi, 9])
+        _, tol = host_dist(qi, res.ids[qi, 9:10])
+        if np.any(np.abs(missed - kth) > tol[0]):
+            raise AssertionError(f"dynamic flat: query {qi} misses rows at "
+                                 f"{missed}, not ties of the 10th {kth}")
+    log(f"dynamic: DynamicFlat over the {flat.size} live rows: recall@10 "
+        f"{recall:.6f}; distances of {min(sample, len(queries))} queries "
+        f"equal the host's float64 ones within f32 rounding")
+    if recall < 0.999:
+        raise AssertionError(f"dynamic flat recall {recall} < 0.999")
+
+
 def kernel_entry(name: str, replaces: str, launches: int, kern: dict,
                  shape: str, build_s: float,
                  source: str = "beam_step.cu") -> dict:
@@ -1463,12 +1716,14 @@ def main(argv: list) -> int:
     phase_host_rerank(main_path)
     lvq_path = phase_lvq_path(main_path)
     scored = phase_scored_path(main_path)["launches"]
+    dynamic_launches = phase_dynamic(main_path)
     del main_path                       # frees the 100k index
     phase_golden()
     pallas = "scalablevectorsearch_tpu/ops/pallas/"
     print(json.dumps({"kernels": [
         kernel_entry("beam_step", pallas + "beam_step.py:261",
-                     main_launches, kern, "serving_bf16", build_s),
+                     main_launches + dynamic_launches, kern,
+                     "serving_bf16", build_s),
         kernel_entry("beam_step_lvq", pallas + "beam_step.py:327",
                      lvq_path["launches"], kern_lvq, "serving", build_s),
         kernel_entry("beam_update", pallas + "beam_update.py:179",

@@ -2,8 +2,11 @@
 scalablevectorsearch_tpu.
 
 Static Vamana build and batched search over f32/bf16/float16/int8/uint8,
-scalar-quantized (SQ) and LVQ-compressed datasets, flat exhaustive search
-for ground truth, recall, and checkpoints in the JAX package's format (a
+scalar-quantized (SQ) and LVQ-compressed datasets; the dynamic indexes
+(``MutableVamanaIndex`` / ``DynamicVamana``: add, soft delete, consolidate,
+compact; ``DynamicFlatIndex`` / ``DynamicFlat``; the multi-vector
+``MultiMutableVamanaIndex``); flat exhaustive search for ground truth,
+recall, and checkpoints in the JAX package's format (a
 checkpoint either package saves loads in the other), in PyTorch on one
 NVIDIA H100.  The
 per-iteration beam step is a CUDA kernel written for Hopper
@@ -22,15 +25,21 @@ from .core.io import (generate_test_dataset, read_npy, read_vecs, write_npy,
                       write_vecs)
 from .core.query_result import QueryResult
 from .core.recall import k_recall_at_n
+from .core.translation import IDTranslator
+from .index.dynamic_flat import DynamicFlatIndex
 from .index.flat import FlatIndex, exhaustive_search
+from .index.vamana.dynamic import MutableVamanaIndex
 from .index.vamana.index import VamanaIndex
+from .index.vamana.multi import MultiMutableVamanaIndex
 from .index.vamana.params import (SearchBufferConfig, VamanaBuildParameters,
                                   VamanaSearchParameters)
 from .ops.distance import DistanceType, as_distance
+from .orchestrators.dynamic_vamana import DynamicFlat, DynamicVamana
 from .orchestrators.flat import Flat
 from .orchestrators.vamana import Vamana
 from .quantization.lvq import LVQDataset
 from .quantization.scalar import SQDataset
+from .utils.dynamic_helper import ReferenceDataset
 
 L2 = DistanceType.L2
 MIP = DistanceType.MIP
@@ -44,4 +53,6 @@ __all__ = [
     "FlatIndex", "exhaustive_search", "Flat", "dispatch_load",
     "VamanaIndex", "VamanaBuildParameters", "VamanaSearchParameters",
     "SearchBufferConfig", "Vamana", "LVQDataset", "SQDataset",
+    "MutableVamanaIndex", "MultiMutableVamanaIndex", "DynamicVamana",
+    "DynamicFlat", "DynamicFlatIndex", "IDTranslator", "ReferenceDataset",
 ]

@@ -4,7 +4,9 @@ PyTorch counterpart of ``scalablevectorsearch_tpu/core/data.py``: one padded
 ``(capacity, d_pad)`` tensor plus cached squared norms.  The padding rules
 are the JAX package's (``lib.datatypes``), so shapes match across the two
 packages; padding rows carry ``+inf`` norms so they lose every L2
-comparison made through the norm-algebra distance path.
+comparison made through the norm-algebra distance path.  Row mutations
+(``set_rows``, ``scatter_rows``, ``with_capacity``, for the dynamic
+indexes) return a new dataset, as in the JAX package.
 
 Checkpoints are the JAX package's: ``save`` / ``load`` and
 ``save_vectors_host`` write and read the same ``uncompressed_data`` table
@@ -106,6 +108,48 @@ class VectorDataset:
             distance, queries, self.vectors[start:start + tile],
             vector_norms_sq=self.norms_sq[start:start + tile],
             query_norms_sq=q_norms)
+
+    # -- mutation (functional) --------------------------------------------------
+    def _as_rows(self, rows) -> torch.Tensor:
+        """Rows in this dataset's dtype and device, padded to ``padded_dim``
+        columns."""
+        rows = dt.to_torch(rows).to(device=self.device, dtype=self.dtype)
+        if rows.shape[1] != self.padded_dim:
+            rows = torch.nn.functional.pad(
+                rows, (0, self.padded_dim - rows.shape[1]))
+        return rows
+
+    def set_rows(self, start: int, rows, new_n: Optional[int] = None
+                 ) -> "VectorDataset":
+        """Write ``rows`` at ``start`` (norms recomputed) into a new dataset.
+        A block that would run past the capacity is moved back to end at
+        it, as the JAX package's ``dynamic_update_slice`` does."""
+        rows = self._as_rows(rows)
+        start = max(0, min(start, self.capacity - rows.shape[0]))
+        stop = start + rows.shape[0]
+        vectors, norms = self.vectors.clone(), self.norms_sq.clone()
+        vectors[start:stop] = rows
+        norms[start:stop] = rows.float().square().sum(-1)
+        return dataclasses.replace(self, vectors=vectors, norms_sq=norms,
+                                   n=self.n if new_n is None else new_n)
+
+    def scatter_rows(self, slots: torch.Tensor, rows,
+                     new_n: Optional[int] = None) -> "VectorDataset":
+        """Write ``rows`` at arbitrary ``slots`` into a new dataset (the
+        dynamic index's add path); slots outside ``[0, capacity)`` are
+        dropped into a sink row that is sliced off."""
+        rows = self._as_rows(rows)
+        slots = slots.to(self.device)
+        idx = torch.where((slots >= 0) & (slots < self.capacity), slots,
+                          self.capacity).long()
+        vectors = torch.cat([self.vectors,
+                             self.vectors.new_zeros((1, self.padded_dim))])
+        vectors[idx] = rows
+        norms = torch.cat([self.norms_sq, self.norms_sq.new_zeros(1)])
+        norms[idx] = rows.float().square().sum(-1)
+        return dataclasses.replace(self, vectors=vectors[:-1],
+                                   norms_sq=norms[:-1],
+                                   n=self.n if new_n is None else new_n)
 
     def with_capacity(self, capacity: int) -> "VectorDataset":
         """Grow (pad) the backing tensors to at least ``capacity`` rows."""

@@ -113,6 +113,28 @@ class NeighborGraph:
             self, adjacency=flat[:-1].reshape(self.adjacency.shape),
             degrees=self.degrees + counts[:-1])
 
+    def clear_rows(self, ids: torch.Tensor) -> "NeighborGraph":
+        """Reset the adjacency of the given nodes to empty (the reference's
+        ``clear_node``, graph.h:146); ids outside the graph are dropped."""
+        ids = ids.to(self.adjacency.device)
+        return self.replace_rows(
+            ids, self.adjacency.new_full((ids.shape[0], self.max_degree),
+                                         SENTINEL),
+            self.degrees.new_zeros(ids.shape[0]))
+
+    def with_capacity(self, capacity: int) -> "NeighborGraph":
+        """Grow to at least ``capacity`` rows (a multiple of 8) of empty
+        adjacency."""
+        cap = dt.pad_to(capacity, 8)
+        if cap <= self.capacity:
+            return self
+        grow = cap - self.capacity
+        adjacency = torch.cat([self.adjacency, self.adjacency.new_full(
+            (grow, self.max_degree), SENTINEL)])
+        degrees = torch.cat([self.degrees, self.degrees.new_zeros(grow)])
+        return dataclasses.replace(self, adjacency=adjacency,
+                                   degrees=degrees)
+
     def to_numpy(self) -> np.ndarray:
         return self.adjacency[: self.n].cpu().numpy()
 

@@ -26,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -111,6 +111,8 @@ class PendingSearch:
     # (vectors, norms_sq, queries_f32, distance, k): the exact host-side
     # re-scoring of each fetched beam (enable_host_rerank)
     host_rerank: Optional[tuple] = None
+    # host map of result slots to external ids (the dynamic indexes)
+    translate_ids: Optional[Callable[[np.ndarray], np.ndarray]] = None
 
     def add(self, start: int, ids: torch.Tensor, vals: torch.Tensor) -> None:
         """Queue one batch's (ids, values), starting their copy to pinned
@@ -140,6 +142,8 @@ class PendingSearch:
                 slots, vals = _host_rerank_batch(
                     slots, queries[start:stop], vectors, norms_sq,
                     distance, k)
+            if self.translate_ids is not None:
+                slots = self.translate_ids(slots)
             # k may exceed the dispatch width (k > n clamps the beam; the
             # extra columns keep their -1 / +inf prefill)
             self.out_ids[start:stop, : slots.shape[1]] = slots
@@ -231,6 +235,31 @@ def dequantize_queries(q: torch.Tensor, q_scale: Optional[torch.Tensor]
     """Device-side inverse of :func:`prepare_query_upload`."""
     q = q.float()
     return q if q_scale is None else q * q_scale
+
+
+def upload_batches(queries: np.ndarray, plan: _BatchPlan, padded_dim: int,
+                   device: torch.device, override=None, cancel=None):
+    """Yield ``(start, q_i, scale_i)`` for each lockstep batch of ``plan``.
+
+    The (nq, dim) host queries are padded and cast or quantized for the
+    upload once (:func:`prepare_query_upload`, pinned when ``device`` is a
+    GPU); each batch is then copied to ``device`` asynchronously, so its
+    transfer overlaps the previous batch's search.  ``cancel`` is checked
+    before each batch."""
+    from ...lib.exceptions import check_cancel
+    q_host = dt.pad_matrix(queries.astype(np.float32),
+                           n_pad=plan.rows * plan.n_batches, d_pad=padded_dim)
+    q_host, q_scale_host = prepare_query_upload(q_host, override)
+    if device.type == "cuda":
+        q_host = q_host.pin_memory()
+        q_scale_host = None if q_scale_host is None else \
+            q_scale_host.pin_memory()
+    for i in range(plan.n_batches):
+        check_cancel(cancel)
+        rows = slice(i * plan.rows, (i + 1) * plan.rows)
+        yield (i * plan.rows, q_host[rows].to(device, non_blocking=True),
+               None if q_scale_host is None else
+               q_scale_host[rows].to(device, non_blocking=True))
 
 
 def _search_batch(graph, data, packed, rerank_view, sampler, q, q_scale,
@@ -459,7 +488,6 @@ class VamanaIndex:
         k when the capacity was set explicitly; single-argument configs keep
         the k floor on both.  k may exceed the dataset: the beam holds at
         most n rows, and the extra result columns stay -1 / +inf."""
-        from ...lib.exceptions import check_cancel
         params = parameters or self._search_parameters
         cfg = params.buffer_config
         k_eff = min(k, self.size)
@@ -490,15 +518,6 @@ class VamanaIndex:
         device = self.data.device
         entry_ids = torch.tensor([self.entry_point], dtype=torch.int32,
                                  device=device)
-        q_host = dt.pad_matrix(queries.astype(np.float32),
-                               n_pad=plan.rows * plan.n_batches,
-                               d_pad=self.data.padded_dim)
-        q_host, q_scale_host = prepare_query_upload(
-            q_host, self.query_upload_dtype)
-        if device.type == "cuda":
-            q_host = q_host.pin_memory()
-            q_scale_host = None if q_scale_host is None else \
-                q_scale_host.pin_memory()
         # the host rerank fetches the whole retained beam, so that the exact
         # re-scoring has a real candidate pool
         hr = self._host_rerank
@@ -509,12 +528,9 @@ class VamanaIndex:
             out_vals=np.full((nq, k), np.inf, dtype=np.float32),
             host_rerank=None if hr is None else
             (hr[0], hr[1], queries.astype(np.float32), self.distance, k_eff))
-        for i in range(plan.n_batches):
-            check_cancel(cancel)
-            rows = slice(i * plan.rows, (i + 1) * plan.rows)
-            q_i = q_host[rows].to(device, non_blocking=True)
-            scale_i = None if q_scale_host is None else \
-                q_scale_host[rows].to(device, non_blocking=True)
+        for start, q_i, scale_i in upload_batches(
+                queries, plan, self.data.padded_dim, device,
+                self.query_upload_dtype, cancel):
             ids_k, vals_k = _search_batch(
                 self.graph, self.data, self._packed, rerank_view,
                 self._entry_sampler, q_i, scale_i, entry_ids,
@@ -523,7 +539,7 @@ class VamanaIndex:
                 tail_frac=self.tail_frac, visited_size=visited_size,
                 two_level=two_level, n_entries=self._entry_n,
                 pop_width=self.pop_width)
-            pending.add(i * plan.rows, ids_k, vals_k)
+            pending.add(start, ids_k, vals_k)
         return pending.dispatched()
 
     # -- reconstruction -----------------------------------------------------------

@@ -17,7 +17,11 @@ be run on one graph.  An LVQ dataset carries across through
 ``res_scales``) and stands in place of the rows; an ``SQDataset`` through
 :func:`sq_from_arrays` (its ``codes``, ``scale``, ``bias``, ``n``,
 ``dim``).  A float16 / int8 table carries across through
-:func:`dataset_from_array` with ``dtype=``.
+:func:`dataset_from_array` with ``dtype=``.  A JAX ``MutableVamanaIndex``
+carries across through :func:`dynamic_vamana_from_arrays`, from the arrays
+its ``save`` writes: the rows and the slot ``status`` up to the high-water
+mark ``idx.data.n``, ``idx.translator.to_external(np.arange(n))``, the
+adjacency, the entry point, ``idx.parameters`` and ``idx.data.capacity``.
 """
 
 from __future__ import annotations
@@ -29,8 +33,10 @@ import torch
 
 from .core.data import VectorDataset
 from .core.graph import NeighborGraph
+from .index.vamana.dynamic import MutableVamanaIndex
 from .index.vamana.entry import build_sampler
 from .index.vamana.index import VamanaIndex
+from .index.vamana.params import VamanaBuildParameters
 from .quantization.lvq import LVQDataset, _unpack4
 from .quantization.scalar import SQDataset
 
@@ -109,4 +115,26 @@ def vamana_from_arrays(vectors, adjacency, degrees, entry_point: int,
     if sampler_ids is not None:
         index._entry_sampler = build_sampler(data, len(sampler_ids),
                                              ids=sampler_ids)
+    return index
+
+
+def dynamic_vamana_from_arrays(vectors, adjacency, degrees, status,
+                               external_ids, entry_point: int, distance,
+                               parameters: VamanaBuildParameters, *,
+                               capacity: int, sampler_cfg=None,
+                               device="cuda") -> MutableVamanaIndex:
+    """Build a port :class:`MutableVamanaIndex` over a JAX dynamic index's
+    state, without a build: ``vectors`` (high-water, dim) rows, ``status``
+    and ``external_ids`` aligned with them (the ids of slots that are not
+    VALID are ignored), the (rows, R) adjacency and degrees, the resolved
+    build ``parameters`` and the storage ``capacity``.  ``sampler_cfg``:
+    the JAX index's ``_sampler_cfg`` ``(n_samples, n_entries, seed)``; the
+    sample is drawn from the VALID slots as the JAX index draws it."""
+    data = VectorDataset.from_array(np.asarray(vectors, np.float32),
+                                    capacity=capacity, device=device)
+    graph = graph_from_arrays(adjacency, degrees, data.n, device=device)
+    index = MutableVamanaIndex.from_state(data, graph, status, external_ids,
+                                          entry_point, distance, parameters)
+    if sampler_cfg is not None:
+        index.enable_entry_sampler(*sampler_cfg)
     return index

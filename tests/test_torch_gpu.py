@@ -578,3 +578,53 @@ def test_legacy_lvq_fixtures_load_on_gpu(cuda, fixture, bits, res):
     x = np.random.default_rng(7).normal(size=(48, 20)).astype(np.float32)
     fresh = svt.LVQDataset.compress(x, bits=bits, residual_bits=res)
     np.testing.assert_allclose(got.to_numpy(), fresh.to_numpy(), atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_dynamic_index_on_gpu_matches_cpu(cuda):
+    """One dynamic index, carried from the CPU to the card, through one
+    add (growing the storage), delete, consolidate and compact cycle on
+    both devices.  The rows are integers, so every distance is exact on
+    both and the card's beam_step and the CPU's plain version rank alike:
+    after every step the two searches return the same ids except at
+    near-ties (at most 0.1% of the rows), no deleted id, and on the card
+    beam_step launches in the add and in every search."""
+    from scalablevectorsearch_tpu_torch import interop
+    data, queries = svt.generate_test_dataset(2400, 1000, 48, seed=9)
+    data, queries = np.round(data), np.round(queries)
+    params = svt.VamanaBuildParameters(graph_max_degree=16, window_size=32,
+                                       max_candidate_pool_size=64,
+                                       prune_to=14)
+    cpu = svt.MutableVamanaIndex(params, data[:1500], np.arange(1500), "l2",
+                                 capacity=1600, device="cpu")
+    n = cpu.data.n
+    card = interop.dynamic_vamana_from_arrays(
+        data[:1500], cpu.graph.adjacency.numpy(), cpu.graph.degrees.numpy(),
+        cpu.status[:n], cpu.translator.to_external(np.arange(n)),
+        cpu.entry_point, "l2", cpu.parameters, capacity=cpu.data.capacity,
+        device="cuda")
+    dead = np.random.default_rng(3).choice(1900, size=300, replace=False)
+    steps = (("add", lambda i: i.add_points(data[1500:1900],
+                                            np.arange(1500, 1900))),
+             ("delete", lambda i: i.delete_points(dead)),
+             ("consolidate", lambda i: i.consolidate()),
+             ("compact", lambda i: i.compact()))
+    for index in (cpu, card):
+        index.search_window_size = 20
+        index.enable_entry_sampler(n_samples=128, seed=1)
+    for name, step in steps:
+        before = bs.beam_step.launches
+        for index in (cpu, card):
+            step(index)
+        assert (bs.beam_step.launches > before) == (name == "add"), name
+        assert card.data.capacity == cpu.data.capacity == 3200
+        np.testing.assert_array_equal(card.status, cpu.status)
+        before = bs.beam_step.launches
+        got, want = card.search(queries, 10), cpu.search(queries, 10)
+        assert bs.beam_step.launches > before, name
+        same = (np.sort(got.ids, 1) == np.sort(want.ids, 1)).all(1)
+        rows = (card.graph.adjacency.cpu() == cpu.graph.adjacency).all(1)
+        assert same.mean() >= 0.999, (name, same.mean(),
+                                      rows.float().mean())
+        if name != "add":
+            assert not np.isin(got.ids, dead).any(), name

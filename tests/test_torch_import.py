@@ -22,6 +22,12 @@ PORT_MODULES = [
     "scalablevectorsearch_tpu_torch.index.vamana.entry, "
     "scalablevectorsearch_tpu_torch.index.vamana.packed, "
     "scalablevectorsearch_tpu_torch.lib.transfer",
+    "scalablevectorsearch_tpu_torch.core.translation, "
+    "scalablevectorsearch_tpu_torch.index.dynamic_flat, "
+    "scalablevectorsearch_tpu_torch.index.vamana.dynamic, "
+    "scalablevectorsearch_tpu_torch.index.vamana.multi, "
+    "scalablevectorsearch_tpu_torch.orchestrators.dynamic_vamana, "
+    "scalablevectorsearch_tpu_torch.utils.dynamic_helper",
 ]
 
 

@@ -12,7 +12,11 @@ profiles with ``torch.profiler``:
     LVQ8x8 packed with its rerank, at window 20; float16 rows unpacked (the
     scored route) at window 11 and SQ-int8 rows unpacked at window 12;
   - one build round (B 2500, window 100, pool 300, pass-2 alpha) over the
-    f32 rows, over LVQ-8 codes and over SQ-int8 codes (the scored route).
+    f32 rows, over LVQ-8 codes and over SQ-int8 codes (the scored route);
+  - the dynamic index over the f32 graph and rows: one add round (B 125,
+    as ``add_points`` runs 5,000 rows), one consolidation batch (1024
+    vertices after 10,000 soft deletes) and the medioid of the VALID rows
+    that ``compact`` and an entry-point delete recompute.
 For each it prints the wall time with the profiler on, the device busy
 time (the sum of the device-side events' times: kernels and copies), the
 device's idle share, the share of the beam-step kernels (beam_step,
@@ -171,7 +175,38 @@ def main() -> int:
             rev_alpha=params.alpha, prune_to=params.prune_to,
             max_degree=params.graph_max_degree, prune_chunk=256,
             pop_width=4, tail_frac=4))
+    profile_dynamic(index, params.resolved("l2"))
     return 0
+
+
+def profile_dynamic(index, params, device="cuda") -> None:
+    """The dynamic index's own steps over ``index``'s graph and rows."""
+    import numpy as np
+    from scalablevectorsearch_tpu_torch.index.vamana import dynamic as dmod
+    n = index.data.n
+    dyn = dmod.MutableVamanaIndex.from_state(
+        index.data, index.graph, np.full(n, dmod.SLOT_VALID, np.int8),
+        np.arange(n), index.entry_point, "l2", params)
+    slots = np.arange(125)
+    profiled("dynamic add round B 125 (one of add_points 5000's 40)",
+             lambda: dyn._build_over(slots, batch_size=125))
+    dyn.delete_points(np.arange(0, n, 10))          # 10,000 at 100k
+    valid = torch.from_numpy(dyn.status == dmod.SLOT_VALID).to(device)
+    affected = dmod._affected_by_deleted(dyn.graph.adjacency,
+                                         dyn.deleted_mask, valid)
+    ids = torch.nonzero(affected).flatten()[:1024].int()
+    ok = torch.ones(ids.shape[0], dtype=torch.bool, device=device)
+    r = params.graph_max_degree
+    print(f"dynamic: {int(affected.sum())} vertices affected by "
+          f"{int(dyn.deleted_mask.sum())} deleted", flush=True)
+    profiled("dynamic consolidate batch (1024 vertices)",
+             lambda: dmod.consolidate_round(
+                 dyn.graph, dyn.data, ids, ok, dyn.deleted_mask,
+                 prune_to=params.prune_to, alpha=float(params.alpha),
+                 distance=dyn.distance, max_degree=r, prune_chunk=128,
+                 pool_cap=min(r * (r + 1), 4 * r)))
+    profiled("dynamic medioid of the VALID rows (compact)",
+             dyn._reset_entry_point)
 
 
 if __name__ == "__main__":
