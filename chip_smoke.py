@@ -14,11 +14,16 @@ Phases, one line of detail each (any failure exits non-zero):
      SASS instruction counts of gather_distance's kernel instances;
   3. kernels: beam_step's CUDA kernel against its plain PyTorch version on
      the card, 3 metrics x {f32, bf16} rows at the serving, the build and
-     the tail (B 418) shape, plus times (below);
+     the tail (B 418) shape, plus times (below); untimed, the shapes of
+     later paths: the dynamic path's, the iterator's first and deepest
+     page (B 8, C 21 and 1024), calibration's widest search and compacted
+     tail at pop width 8 (K 256: C 512 at B 1000, C 16 at B 250);
   4. kernels, LVQ: beam_step_lvq against beam_step_lvq_plain, 3 metrics x
      the three shapes (n_dead 28 when serving, 0 at the build shape),
      exact and real inputs, and against beam_step over the decoded rows;
-     times and the bound;
+     times and the bound; untimed, LeanVec's shapes (64 live lanes of 128,
+     n_dead 64: serving B 2048 and tail B 418 at C 30, the build's B 2500
+     at C 100), real-input rows off the plain version's proven near-ties;
   5. kernels, scored: beam_update against beam_update_plain at the three
      shapes (tied and real keys: identical outputs);
      score_rows against its plain version at (2048, 128, 128) f32;
@@ -83,13 +88,47 @@ Phases, one line of detail each (any failure exits non-zero):
      trip with the deleted slots pending (identical ids and distances);
      DynamicFlat through the same mutations, recall@10 >= 0.999 with every
      miss a tie of the 10th distance;
-  12. golden gate: the L2, MIP and cosine rows of
-     data/golden/vamana_reference.json within +-0.05 recall (GOLDEN_TOL).
-Each path (6-11) starts with every launch count at 0 and reads them at
+  12. iterator: BatchIterator over the main index, 32 queries x 10 pages
+     of 10 from the main path's serving window (pages disjoint and nearest-first, first-page
+     recall@10 >= 0.9, the ten pages covering >= 0.95 of the exact
+     top-100, restart repeating the first page, beam_step launching on
+     every page); one query paged in pages of 64 past capacity 1024 into
+     the wide route (no repeats; its pages launch gather_score_l2_partial
+     and no beam_step); the dynamic index after deleting the 128 live rows
+     nearest a query: no deleted or unknown id ever yielded, no page empty;
+     then beam_step against its plain version at every shape, row type,
+     query type and metric the phase gave it (recorded as it ran);
+  13. calibrate: calibrate_full on the main index to recall@10 0.9 with
+     1000 calibration queries; the winner set on the index and its recall
+     on the other 4000 queries >= 0.89; again with the int8 upload axis
+     (where int8 wins, the index uploads int8 queries); an unreachable
+     target returns the best effort; trials, winner, recall and QPS (host
+     clock, noisy); then beam_step against its plain version at every
+     shape the phase gave it, as in 12;
+  14. LeanVec over the main path's data: PCA and OOD (a query training set
+     of 10,000 in-distribution queries that are not the test queries) to
+     64 dimensions, LVQ-8 primary and secondary; LeanVecVamana built with
+     the main path's parameters and sampled entries (beam_step_lvq at
+     n_dead 64); the primary search alone swept to recall@10 >= 0.9
+     against the exact search over the decoded primary with the projected
+     queries; the reranked search's f32-truth recall and QPS at every
+     window from the fetch (k * 3 = 30) up; the projection's ceiling, the
+     exact projected top-30 (and top-100) reranked, reported; PCA's share
+     of the variance and of query-to-neighbour distances; the rerank of 256
+     queries held to a float64 host rerank of the fetched ids; a save /
+     assemble round trip searched identically; every search and the build
+     launching beam_step_lvq;
+  15. golden gate: the L2, MIP and cosine rows of
+     data/golden/vamana_reference.json and the bf16, SQ-int8, LVQ-8 and
+     LVQ8x8 rows of data/golden/torch_kinds_reference.json (written by
+     tools/make_torch_kinds_golden.py with the JAX package) within +-0.05
+     recall (GOLDEN_TOL).
+Each path (6-14) starts with every launch count at 0 and reads them at
 its end.  The line before the last is the JSON summary of the five
 kernels (beam_step, beam_step_lvq, beam_update, score_rows,
-gather_score_l2_partial; beam_step's launches are the main and the
-dynamic path's); the last line is ``{"ok": true, "device": {...}}``.
+gather_score_l2_partial; each kernel's launches are the sum over the
+paths, ``launches_by_path`` beside it); the last line is
+``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --kernels-only --other-gather PATH.cu
@@ -104,6 +143,7 @@ instruction counts of both gather_distance libraries (cuobjdump).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import itertools
@@ -121,19 +161,28 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "data", "golden", "vamana_reference.json")
+GOLDEN_KINDS = os.path.join(HERE, "data", "golden",
+                            "torch_kinds_reference.json")
 SERVING_SHAPE = (2048, 16, 128, 128, 12, 4)   # B, C, K, d, window, m
 BUILD_SHAPE = (2500, 100, 128, 128, 100, 4)
 # the serving search's compacted tail: a 1672-query batch's last quarter
 TAIL_SHAPE = (418, 16, 128, 128, 12, 4)
 STEP_SHAPES = (("serving", SERVING_SHAPE), ("build", BUILD_SHAPE),
                ("tail", TAIL_SHAPE))
-# shapes only the dynamic path gives beam_step, checked against the plain
-# version but not timed: its searches widen the beam to max(window, 2k) = 20
-# slots (a batch of 2048 and the compacted tail), and each add_points round
-# runs 125 rows at the build window
-DYNAMIC_CHECK_SHAPES = (("dynamic serving", (2048, 20, 128, 128, 11, 4)),
-                        ("dynamic tail", (418, 20, 128, 128, 11, 4)),
-                        ("dynamic add", (125, 100, 128, 128, 100, 4)))
+# shapes only later paths give beam_step, checked against the plain
+# version but not timed: the dynamic path's searches widen the beam to
+# max(window, 2k) = 20 slots (a batch of 2048 and the compacted tail), and
+# each add_points round runs 125 rows at the build window; the iterator
+# pages one query (B 8) at capacity window + batch, up to 1024 before the
+# wide route; calibration searches 1000 queries at pop width 8 (K 256) up
+# to its window bound of 512, and at the compacted tail of a quarter
+UNTIMED_STEP_SHAPES = (("dynamic serving", (2048, 20, 128, 128, 11, 4)),
+                       ("dynamic tail", (418, 20, 128, 128, 11, 4)),
+                       ("dynamic add", (125, 100, 128, 128, 100, 4)),
+                       ("iterator first page", (8, 21, 128, 128, 11, 4)),
+                       ("iterator deep page", (8, 1024, 128, 128, 960, 4)),
+                       ("calibrate widest", (1000, 512, 256, 128, 512, 8)),
+                       ("calibrate tail", (250, 16, 256, 128, 10, 8)))
 WINDOWS = (11, 12, 13, 14, 16, 20, 24, 32, 48, 64, 96, 128)
 # Recall tolerance per golden row.  The cosine row moves by up to 0.097 in
 # the JAX package itself when only the build batch size changes, but the
@@ -149,6 +198,14 @@ SLEEP_CYCLES = 4_000_000       # ~2 ms: longer than queueing one window
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak
 F32_FLOPS_PER_S = 67e12        # H100 SXM fp32 peak outside the tensor cores
 LVQ_DEAD = {"serving": 28, "build": 0, "tail": 28}   # n_dead per shape
+# LeanVec's primary: 64 projected columns in 128 lanes.  Its searches fetch
+# k * 3 = 30 candidates, so window and capacity are at least 30; its build
+# runs the main path's rounds.  Checked against the plain version, untimed.
+LEANVEC_DIM = 64
+LEANVEC_CHECK_SHAPES = (("leanvec serving", (2048, 30, 128, 128, 30, 4)),
+                        ("leanvec tail", (418, 30, 128, 128, 30, 4)),
+                        ("leanvec build", (2500, 100, 128, 128, 100, 4)))
+ITER_QUERIES, ITER_PAGES = 32, 10
 SCORE_SHAPE = (2048, 128, 128)          # B, K, d of the scoring kernels
 TABLE_ROWS = 100_000
 WIDE_CAPACITY = 1280
@@ -321,9 +378,9 @@ def make_case(rng, shape, grid, query_dtype=torch.float32):
         kmax = min(127, int(np.sqrt(2.0 ** 22 / d)))
         table = np.clip(np.rint(table * 32), -kmax, kmax) / np.float32(32)
         queries = np.clip(np.rint(queries * 32), -kmax, kmax) / np.float32(32)
-    vecs = table[np.maximum(cand_ids, 0)]
     out = [torch.from_numpy(np.ascontiguousarray(x)).cuda()
-           for x in (beam_keys, beam_packed, vecs, cand_ids, queries)]
+           for x in (beam_keys, beam_packed, table, cand_ids, queries)]
+    out[2] = out[2][out[3].clamp_min(0).long()]    # (B, K, d) rows
     out[4] = out[4].to(query_dtype)
     return out
 
@@ -542,58 +599,73 @@ def unexplained_rows(args, got, want, rows_off, window: int,
     return bad
 
 
-def phase_kernels() -> dict:
-    """beam_step kernel vs beam_step_plain on the card, at STEP_SHAPES
-    (timed) and DYNAMIC_CHECK_SHAPES (checked only).  Grid inputs: all
+def check_step(rng, label: str, shape, vdt, metric: int,
+               failures: list, qdt=torch.float32) -> tuple:
+    """One beam_step case against beam_step_plain at ``shape`` (B, C, K,
+    d, window, m) with ``vdt`` rows and ``qdt`` queries.  Grid inputs: all
     five outputs identical.  Real-valued inputs: keys within rtol/atol 1e-5
-    (f32 rows) or 1e-3 (bf16 rows), the pool ids identical, and the beam
-    ids and pops identical except where two keys are within rounding of
-    each other: every such row shown a near-tie by ``unexplained_rows``,
-    and at most 0.1% of the rows of each timed case and of the dynamic
-    shapes' cases together (reported)."""
+    (f32 rows and queries) or 1e-3 (bf16), the pool ids identical, and the
+    beam ids and pops identical except at near-ties that
+    ``unexplained_rows`` proves.  Appends what fails to ``failures``;
+    returns (max_abs_err, rows off the plain ids or pops, rows)."""
+    from scalablevectorsearch_tpu_torch.ops.kernels import beam_step as bs
+    window, m = shape[4:]
+    exact = vdt == torch.float32 and qdt == torch.float32
+    tol = 1e-5 if exact else 1e-3
+    kw = dict(metric=metric, window=window, m=m)
+    name = f"{label}/{vdt}/{qdt}/m{metric}"
+    grid = make_case(rng, shape, grid=True, query_dtype=qdt)
+    grid[2] = grid[2].to(vdt)
+    got = bs.beam_step(*grid, **kw)
+    want = bs.beam_step_plain(*grid, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        failures.append(f"{name} grid mismatch")
+    real = make_case(rng, shape, grid=False, query_dtype=qdt)
+    real[2] = real[2].to(vdt)
+    got = bs.beam_step(*real, **kw)
+    want = bs.beam_step_plain(*real, **kw)
+    gk, gp, gpop, gpk, gpi = got
+    wk, wp, wpop, wpk, wpi = want
+    fin = torch.isfinite(wk)
+    if not torch.equal(fin, torch.isfinite(gk)):
+        failures.append(f"{name} inf slots")
+    err = float((gk[fin] - wk[fin]).abs().max()) if bool(fin.any()) else 0.0
+    if not torch.allclose(gk, wk, rtol=tol, atol=tol) or \
+            not torch.allclose(gpk, wpk, rtol=tol, atol=tol) \
+            or not torch.equal(gpi, wpi):
+        failures.append(f"{name} real keys/pool")
+    rows_off = ((gp != wp) & fin).any(1) | (gpop != wpop).any(1)
+    bad = unexplained_rows(real, got, want, rows_off, window, tol)
+    if bad:
+        failures.append(f"{name} real ids: rows {bad[:5]} differ beyond "
+                        f"near-ties")
+    return err, int(rows_off.sum()), rows_off.numel()
+
+
+def phase_kernels() -> dict:
+    """beam_step kernel vs beam_step_plain on the card (:func:`check_step`),
+    at STEP_SHAPES (timed) and UNTIMED_STEP_SHAPES (checked only), f32 and
+    bf16 rows, three metrics.  At most 0.1% of the rows of each timed case,
+    and of the untimed shapes' cases together, may be near-ties with other
+    ids or pops (reported)."""
     from scalablevectorsearch_tpu_torch.ops.kernels import beam_step as bs
     rng = np.random.default_rng(0)
     max_err, timings, failures = 0.0, {}, []
     swapped, rows = [0, 0], [0, 0]     # near-tie rows: [untimed, timed]
-    for label, shape in STEP_SHAPES + DYNAMIC_CHECK_SHAPES:
-        _B, _C, _K, _d, window, m = shape
+    for label, shape in STEP_SHAPES + UNTIMED_STEP_SHAPES:
+        window, m = shape[4:]
+        timed = (label, shape) in STEP_SHAPES
         for vdt in (torch.float32, torch.bfloat16):
-            tol = 1e-5 if vdt == torch.float32 else 1e-3
             for metric in (0, 1, 2):
-                kw = dict(metric=metric, window=window, m=m)
-                grid = make_case(rng, shape, grid=True)
-                grid[2] = grid[2].to(vdt)
-                got = bs.beam_step(*grid, **kw)
-                want = bs.beam_step_plain(*grid, **kw)
-                torch.cuda.synchronize()
-                if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                    failures.append(f"{label}/{vdt}/m{metric} grid mismatch")
-                real = make_case(rng, shape, grid=False)
-                real[2] = real[2].to(vdt)
-                got = bs.beam_step(*real, **kw)
-                want = bs.beam_step_plain(*real, **kw)
-                gk, gp, gpop, gpk, gpi = got
-                wk, wp, wpop, wpk, wpi = want
-                fin = torch.isfinite(wk)
-                if not torch.equal(fin, torch.isfinite(gk)):
-                    failures.append(f"{label}/{vdt}/m{metric} inf slots")
-                err = (gk[fin] - wk[fin]).abs()
-                max_err = max(max_err, float(err.max()))
-                if not torch.allclose(gk, wk, rtol=tol, atol=tol) or \
-                        not torch.allclose(gpk, wpk, rtol=tol, atol=tol) \
-                        or not torch.equal(gpi, wpi):
-                    failures.append(f"{label}/{vdt}/m{metric} real keys/pool")
-                rows_off = ((gp != wp) & fin).any(1) | (gpop != wpop).any(1)
-                bad = unexplained_rows(real, got, want, rows_off, window, tol)
-                if bad:
-                    failures.append(f"{label}/{vdt}/m{metric} real ids: rows "
-                                    f"{bad[:5]} differ beyond near-ties")
-                timed = (label, shape) in STEP_SHAPES
-                swapped[timed] += int(rows_off.sum())
-                rows[timed] += rows_off.numel()
-                if timed and float(rows_off.float().mean()) > 1e-3:
+                err, off, n = check_step(rng, label, shape, vdt, metric,
+                                         failures)
+                max_err = max(max_err, err)
+                swapped[timed] += off
+                rows[timed] += n
+                if timed and off > 1e-3 * n:
                     failures.append(f"{label}/{vdt}/m{metric} real ids "
-                                    f"{int(rows_off.sum())} rows")
+                                    f"{off} rows")
             if not timed:
                 continue
             args = make_case(rng, shape, grid=False)
@@ -612,25 +684,128 @@ def phase_kernels() -> dict:
             log(f"kernels: beam_step {label} B,C,K,d={shape[:4]} {vdt} L2: "
                 + describe(t))
     if swapped[False] > 1e-3 * rows[False]:
-        failures.append(f"dynamic shapes: {swapped[False]} near-tie rows of "
+        failures.append(f"untimed shapes: {swapped[False]} near-tie rows of "
                         f"{rows[False]}")
     if failures:
         raise AssertionError("beam_step kernel vs plain: "
                              + "; ".join(failures))
     log(f"kernels: beam_step matches plain: "
-        f"{len(STEP_SHAPES) + len(DYNAMIC_CHECK_SHAPES)} shapes (3 timed) x "
+        f"{len(STEP_SHAPES) + len(UNTIMED_STEP_SHAPES)} shapes (3 timed) x "
         f"2 dtypes x 3 metrics; grid inputs identical, real inputs "
         f"max_abs_err {max_err:.3g}, near-tie rows with other ids or pops "
         f"{swapped[True]} of {rows[True]} at the timed shapes, "
-        f"{swapped[False]} of {rows[False]} at the dynamic shapes")
+        f"{swapped[False]} of {rows[False]} at the untimed ones")
     return {"max_abs_err": max_err, "timings": timings}
 
 
+@contextlib.contextmanager
+def step_shapes():
+    """Inside the block, record every distinct call ``greedy_search``
+    makes of beam_step, as ((B, C, K, d, window, m), row type, query type,
+    metric), and of beam_step_lvq, as ((B, C, K, d, window, m), "lvq",
+    n_dead, metric); yields the set.  The calls themselves are
+    unchanged."""
+    from scalablevectorsearch_tpu_torch.index.vamana import search as smod
+    seen, step, step_lvq = set(), smod.beam_step, smod.beam_step_lvq
+
+    def recording(beam_keys, beam_packed, vecs, cand_ids, queries, *,
+                  metric, window, m):
+        seen.add(((*beam_keys.shape, *vecs.shape[1:], window, m),
+                  vecs.dtype, queries.dtype, metric))
+        return step(beam_keys, beam_packed, vecs, cand_ids, queries,
+                    metric=metric, window=window, m=m)
+
+    def recording_lvq(beam_keys, beam_packed, codes, *args, metric, window,
+                      m, n_dead):
+        seen.add(((*beam_keys.shape, *codes.shape[1:], window, m), "lvq",
+                  n_dead, metric))
+        return step_lvq(beam_keys, beam_packed, codes, *args, metric=metric,
+                        window=window, m=m, n_dead=n_dead)
+
+    smod.beam_step, smod.beam_step_lvq = recording, recording_lvq
+    try:
+        yield seen
+    finally:
+        smod.beam_step, smod.beam_step_lvq = step, step_lvq
+
+
+def check_step_shapes(path: str, seen: set) -> None:
+    """The kernels against their plain versions (:func:`check_step`,
+    :func:`check_lvq_step`) at every call that ``path`` made
+    (:func:`step_shapes`): its shape, row and query types or n_dead, and
+    metric; near-tie rows at most 0.1% of all.  Run after the path has
+    read its launch counts."""
+    rng = np.random.default_rng(1)
+    failures, max_err, off, rows = [], 0.0, 0, 0
+    t0 = time.perf_counter()
+    for shape, kind, arg, metric in sorted(seen, key=str):
+        if kind == "lvq":
+            err, o, n, _real, _got = check_lvq_step(
+                rng, f"{path} {shape}", shape, arg, metric, failures)
+        else:
+            err, o, n = check_step(rng, f"{path} {shape}", shape, kind,
+                                   metric, failures, arg)
+        max_err, off, rows = max(max_err, err), off + o, rows + n
+    if off > 1e-3 * rows:
+        failures.append(f"{off} near-tie rows of {rows}")
+    if not seen or failures:
+        raise AssertionError(f"{path}: kernels vs plain at the path's "
+                             f"shapes: {'; '.join(failures) or 'none seen'}")
+    widths = sorted({s[0][1] for s in seen})
+    log(f"{path}: kernels match plain at the path's {len(seen)} calls "
+        f"(B {sorted({s[0][0] for s in seen})}, C {widths[0]}-{widths[-1]}, "
+        f"K {sorted({s[0][2] for s in seen})}, m "
+        f"{sorted({s[0][5] for s in seen})}, rows "
+        f"{sorted({str(s[1]) for s in seen})}, queries or n_dead "
+        f"{sorted({str(s[2]) for s in seen})}); grid inputs identical, real "
+        f"inputs max_abs_err {max_err:.3g}, near-tie rows {off} of {rows}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def check_lvq_step(rng, label: str, shape, n_dead: int, metric: int,
+                   failures: list) -> tuple:
+    """One beam_step_lvq case against beam_step_lvq_plain at ``shape``
+    with ``n_dead`` zero lanes.  Exact inputs: all five outputs identical.
+    Real inputs: keys within rtol/atol 1e-5, pool ids identical, beam ids
+    and pops identical except near-ties that ``unexplained_rows`` proves.
+    Appends what fails to ``failures``; returns (max_abs_err, rows off the
+    plain ids or pops, rows, the real inputs, the kernel's outputs on
+    them)."""
+    from scalablevectorsearch_tpu_torch.ops.kernels import beam_step as bs
+    window, m = shape[4:]
+    kw = dict(metric=metric, window=window, m=m, n_dead=n_dead)
+    tag = f"{label}/m{metric}/dead{n_dead}"
+    grid = make_lvq_case(rng, shape, n_dead, grid=True)
+    got = bs.beam_step_lvq(*grid, **kw)
+    want = bs.beam_step_lvq_plain(*grid, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        failures.append(f"{tag} exact inputs differ")
+    real = make_lvq_case(rng, shape, n_dead, grid=False)
+    got = bs.beam_step_lvq(*real, **kw)
+    want = bs.beam_step_lvq_plain(*real, **kw)
+    gk, gp, gpop, gpk, gpi = got
+    wk, wp, wpop, wpk, wpi = want
+    fin = torch.isfinite(wk)
+    if not torch.equal(fin, torch.isfinite(gk)):
+        failures.append(f"{tag} inf slots")
+    err = float((gk[fin] - wk[fin]).abs().max()) if bool(fin.any()) else 0.0
+    if not torch.allclose(gk, wk, rtol=1e-5, atol=1e-5) or \
+            not torch.allclose(gpk, wpk, rtol=1e-5, atol=1e-5) or \
+            not torch.equal(gpi, wpi):
+        failures.append(f"{tag} real keys/pool")
+    off = ((gp != wp) & fin).any(1) | (gpop != wpop).any(1)
+    bad = unexplained_rows(real, got, want, off, window, 1e-5)
+    if bad:
+        failures.append(f"{tag} real ids: rows {bad[:5]} differ beyond "
+                        "near-ties")
+    return err, int(off.sum()), off.numel(), real, got
+
+
 def phase_kernels_lvq() -> dict:
-    """beam_step_lvq kernel vs beam_step_lvq_plain on the card.  Exact
-    inputs: all five outputs identical.  Real inputs: keys within rtol/atol
-    1e-5, pool ids identical, beam ids and pops identical except near-ties
-    (reported; at most 0.1% of rows).  Also against beam_step over the
+    """beam_step_lvq kernel vs beam_step_lvq_plain on the card
+    (:func:`check_lvq_step`; near-tie rows at most 0.1% of each case's,
+    reported).  Also against beam_step over the
     decoded rows (dead lanes zero, as the JAX package's decoded path): keys
     within rtol/atol 1e-4, ids identical except near-ties."""
     from scalablevectorsearch_tpu_torch.ops.kernels import beam_step as bs
@@ -642,32 +817,16 @@ def phase_kernels_lvq() -> dict:
         _B, _C, _K, d, window, m = shape
         n_dead = LVQ_DEAD[label]
         for metric in (0, 1, 2):
-            kw = dict(metric=metric, window=window, m=m, n_dead=n_dead)
             tag = f"lvq {label}/m{metric}/dead{n_dead}"
-            grid = make_lvq_case(rng, shape, n_dead, grid=True)
-            got = bs.beam_step_lvq(*grid, **kw)
-            want = bs.beam_step_lvq_plain(*grid, **kw)
-            torch.cuda.synchronize()
-            if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                failures.append(f"{tag} exact inputs differ")
-            real = make_lvq_case(rng, shape, n_dead, grid=False)
-            got = bs.beam_step_lvq(*real, **kw)
-            want = bs.beam_step_lvq_plain(*real, **kw)
+            err, off, n, real, got = check_lvq_step(
+                rng, f"lvq {label}", shape, n_dead, metric, failures)
+            max_err = max(max_err, err)
+            swapped += off
+            rows += n
+            if off > 1e-3 * n:
+                failures.append(f"{tag} real ids {off} rows")
             gk, gp, gpop, gpk, gpi = got
-            wk, wp, wpop, wpk, wpi = want
-            fin = torch.isfinite(wk)
-            if not torch.equal(fin, torch.isfinite(gk)):
-                failures.append(f"{tag} inf slots")
-            max_err = max(max_err, float((gk[fin] - wk[fin]).abs().max()))
-            if not torch.allclose(gk, wk, rtol=1e-5, atol=1e-5) or \
-                    not torch.allclose(gpk, wpk, rtol=1e-5, atol=1e-5) or \
-                    not torch.equal(gpi, wpi):
-                failures.append(f"{tag} real keys/pool")
-            off = ((gp != wp) & fin).any(1) | (gpop != wpop).any(1)
-            swapped += int(off.sum())
-            rows += off.numel()
-            if float(off.float().mean()) > 1e-3:
-                failures.append(f"{tag} real ids {int(off.sum())} rows")
+            fin = torch.isfinite(gk)
             # the same step over the decoded f32 rows
             bk, bp, codes, sc, bi, mean, cids, q = real
             dec = affine_decode(codes, sc, bi, mean[0], bits=8,
@@ -696,12 +855,28 @@ def phase_kernels_lvq() -> dict:
         timings[label] = t
         log(f"kernels: beam_step_lvq {label} B,C,K,d={shape[:4]} n_dead "
             f"{n_dead} L2: " + describe(t))
+    # LeanVec's shapes, untimed: every real-input row off the plain
+    # version's a proven near-tie, at most 0.1% of their rows together
+    n_dead = 128 - LEANVEC_DIM
+    lv_swapped = lv_rows = 0
+    for label, shape in LEANVEC_CHECK_SHAPES:
+        for metric in (0, 1, 2):
+            err, off, n, _real, _got = check_lvq_step(
+                rng, label, shape, n_dead, metric, failures)
+            max_err = max(max_err, err)
+            lv_swapped += off
+            lv_rows += n
+    if lv_swapped > 1e-3 * lv_rows:
+        failures.append(f"leanvec shapes: {lv_swapped} near-tie rows of "
+                        f"{lv_rows}")
     if failures:
         raise AssertionError("beam_step_lvq kernel: " + "; ".join(failures))
     log(f"kernels: beam_step_lvq matches plain: 3 shapes x 3 metrics; exact "
         f"inputs identical, real inputs max_abs_err {max_err:.3g}, near-tie "
         f"rows with other ids or pops {swapped} of {rows}; vs beam_step on "
-        f"decoded rows {swapped_dec} of {rows}")
+        f"decoded rows {swapped_dec} of {rows}; LeanVec's shapes (n_dead "
+        f"{n_dead}) x 3 metrics: exact inputs identical, near-tie rows "
+        f"{lv_swapped} of {lv_rows}")
     return {"max_abs_err": max_err, "timings": timings}
 
 
@@ -711,10 +886,10 @@ def phase_main_path() -> dict:
     from scalablevectorsearch_tpu_torch.index.vamana.index import (
         dequantize_queries, prepare_query_upload)
     from scalablevectorsearch_tpu_torch.ops.kernels.beam_step import (
-        beam_step, beam_step_lvq)
+        beam_step)
     data, queries = svt.generate_test_dataset(100_000, 5000, 128, seed=42)
     params = main_path_params()
-    beam_step.launches = beam_step_lvq.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     index = svt.Vamana.build(params, data, "l2", sampled_entries=True)
     torch.cuda.synchronize()
@@ -760,7 +935,7 @@ def phase_main_path() -> dict:
                              "path (build %d, serving %d)"
                              % (build_launches, serve_launches))
     return {"launches": total_launches, "index": index, "data": data,
-            "queries": queries, "gt": gt}
+            "queries": queries, "gt": gt, "window": window}
 
 
 def main_path_params():
@@ -768,6 +943,24 @@ def main_path_params():
     return svt.VamanaBuildParameters(
         alpha=1.1, graph_max_degree=32, window_size=100,
         max_candidate_pool_size=300, prune_to=28)
+
+
+def launch_check(kernel, label: str, then=None):
+    """A :func:`sweep` ``check``: fails unless ``kernel`` launched in each
+    search since the previous one; ``then(result)``, where given, runs
+    after."""
+    before = kernel.launches
+
+    def check(res, w):
+        nonlocal before
+        if kernel.launches == before:
+            raise AssertionError(f"{label}: {kernel.__name__} not launched "
+                                 f"in the search at window {w}")
+        before = kernel.launches
+        if then is not None:
+            then(res)
+
+    return check
 
 
 def sweep(index, queries, gt, label: str, check=None):
@@ -901,11 +1094,11 @@ def phase_persistence(main_path: dict) -> dict:
     import io
     import scalablevectorsearch_tpu_torch as svt
     from scalablevectorsearch_tpu_torch.ops.kernels.beam_step import (
-        beam_step, beam_step_lvq)
+        beam_step)
     index = main_path["index"]
     live, data, queries = index.index, main_path["data"], main_path["queries"]
     device = live.data.device
-    beam_step.launches = beam_step_lvq.launches = 0
+    zero_counts()
 
     def stream_save(tmp):
         with open(os.path.join(tmp, "index.svt"), "wb") as f:
@@ -1039,7 +1232,7 @@ def phase_lvq_path(main_path: dict) -> dict:
     data, queries, gt = (main_path[key] for key in ("data", "queries", "gt"))
     index.disable_packed_serving()          # drop the bf16 packed rows
     torch.cuda.empty_cache()
-    beam_step.launches = beam_step_lvq.launches = 0
+    zero_counts()
 
     def over_graph(lvq):
         idx = VamanaIndex(index.graph, lvq, index.entry_point,
@@ -1125,39 +1318,71 @@ def phase_lvq_path(main_path: dict) -> dict:
     same_search("LVQ-8 index, packed", built, loaded, queries,
                 (beam_step_lvq,), path="lvq path")
     del loaded
-    out["launches"] = beam_step_lvq.launches
+    out["launches"] = read_counts()
     log(f"lvq path: launches beam_step_lvq {beam_step_lvq.launches}, "
         f"beam_step {beam_step.launches}")
     return out
 
 
-def phase_golden() -> None:
+def golden_dataset(kind: str, data: np.ndarray):
+    """The dataset of a golden row's ``dataset_kind`` (f32 rows where the
+    row names none), on the card."""
     import scalablevectorsearch_tpu_torch as svt
-    with open(GOLDEN) as f:
-        golden = json.load(f)
-    spec, k = golden["dataset"], golden["num_neighbors"]
-    data, queries = svt.generate_test_dataset(
-        spec["n"], spec["n_queries"], spec["dim"], seed=spec["seed"])
+    if kind == "f32":
+        return data
+    if kind == "bf16":
+        return svt.VectorDataset.from_array(data, dtype=torch.bfloat16)
+    if kind == "sq_int8":
+        return svt.SQDataset.compress(data)
+    if kind == "lvq8":
+        return svt.LVQDataset.compress(data, bits=8)
+    if kind == "lvq8x8":
+        return svt.LVQDataset.compress(data, bits=8, residual_bits=8)
+    raise ValueError(f"unknown golden dataset kind {kind!r}")
+
+
+def phase_golden() -> None:
+    """Every row of GOLDEN (f32 rows, three distances) and GOLDEN_KINDS
+    (four dataset kinds, L2) built and searched on the card, recall@10
+    against the exact f32 search within GOLDEN_TOL of the row."""
+    import scalablevectorsearch_tpu_torch as svt
     bad = []
-    for entry in golden["expected"]:
-        bp = svt.VamanaBuildParameters(**{
-            key: val for key, val in entry["build_parameters"].items()
-            if key in ("alpha", "graph_max_degree", "window_size",
-                       "max_candidate_pool_size", "prune_to")})
-        t0 = time.perf_counter()
-        index = svt.VamanaIndex.build(bp, data, entry["distance"])
-        build_s = time.perf_counter() - t0
-        gt = svt.exhaustive_search(data, queries, k, entry["distance"])
-        got = {}
-        for window, want in entry["recalls"].items():
-            index.search_window_size = int(window)
-            got[window] = svt.k_recall_at_n(gt, index.search(queries, k))
-            if abs(got[window] - want) > GOLDEN_TOL[entry["distance"]]:
-                bad.append(f"{entry['distance']} w{window} "
-                           f"{got[window]:.4f} vs {want}")
-        log(f"golden: {entry['distance']} build {build_s:.2f} s, recall "
-            + " ".join(f"w{w}:{r:.4f}(ref {entry['recalls'][w]})"
-                       for w, r in got.items()))
+    for path in (GOLDEN, GOLDEN_KINDS):
+        with open(path) as f:
+            golden = json.load(f)
+        spec, k = golden["dataset"], golden["num_neighbors"]
+        data, queries = svt.generate_test_dataset(
+            spec["n"], spec["n_queries"], spec["dim"], seed=spec["seed"])
+        truth = {}
+        for entry in golden["expected"]:
+            kind, distance = entry.get("dataset_kind", "f32"), \
+                entry["distance"]
+            bp = svt.VamanaBuildParameters(**{
+                key: val for key, val in entry["build_parameters"].items()
+                if key in ("alpha", "graph_max_degree", "window_size",
+                           "max_candidate_pool_size", "prune_to")})
+            before = read_counts()
+            t0 = time.perf_counter()
+            index = svt.VamanaIndex.build(bp, golden_dataset(kind, data),
+                                          distance)
+            build_s = time.perf_counter() - t0
+            if distance not in truth:
+                truth[distance] = svt.exhaustive_search(data, queries, k,
+                                                        distance)
+            got = {}
+            for window, want in entry["recalls"].items():
+                index.search_window_size = int(window)
+                got[window] = svt.k_recall_at_n(truth[distance],
+                                                index.search(queries, k))
+                if abs(got[window] - want) > GOLDEN_TOL[distance]:
+                    bad.append(f"{distance} {kind} w{window} "
+                               f"{got[window]:.4f} vs {want}")
+            launched = {name: n for name, n in launched_since(before).items()
+                        if n}
+            log(f"golden: {distance} {kind} build {build_s:.2f} s, recall "
+                + " ".join(f"w{w}:{r:.4f}(ref {entry['recalls'][w]})"
+                           for w, r in got.items())
+                + f"; launches {launched}")
     if bad:
         raise AssertionError("golden recall outside tolerance: "
                              + "; ".join(bad))
@@ -1381,18 +1606,13 @@ def phase_scored_path(main_path: dict) -> dict:
     from scalablevectorsearch_tpu_torch.index.vamana.index import (
         VamanaIndex)
     from scalablevectorsearch_tpu_torch.lib.saveload import save_to_disk
-    from scalablevectorsearch_tpu_torch.ops.kernels.beam_step import (
-        beam_step, beam_step_lvq)
     from scalablevectorsearch_tpu_torch.ops.kernels.beam_update import (
         beam_update)
     from scalablevectorsearch_tpu_torch.ops.kernels.gather_distance import (
         gather_score_l2_partial, score_rows)
     index = main_path["index"].index
     data, queries, gt = (main_path[key] for key in ("data", "queries", "gt"))
-    counted = (beam_step, beam_step_lvq, beam_update, score_rows,
-               gather_score_l2_partial)
-    for kernel in counted:
-        kernel.launches = 0
+    zero_counts()
     torch.cuda.empty_cache()
     out = {}
 
@@ -1440,14 +1660,13 @@ def phase_scored_path(main_path: dict) -> dict:
     ceiling = svt.k_recall_at_n(gt, sq_gt)
     log(f"scored path: SQ-int8 scale {sq.scale:.6g}: exact search over the "
         f"decoded rows has recall@10 {ceiling:.4f} against the f32 truth")
-    before = {k.__name__: k.launches for k in counted}
+    before = read_counts()
     t0 = time.perf_counter()
     built = svt.Vamana.build(main_path_params(), sq, "l2",
                              sampled_entries=True)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    launches = {k.__name__: k.launches - before[k.__name__]
-                for k in counted}
+    launches = launched_since(before)
     log(f"scored path: SQ-int8 build {data.shape[0]}x{data.shape[1]} in "
         f"{build_s:.2f} s, mean "
         f"degree {built.index.graph.mean_degree():.3f}, launches {launches}")
@@ -1480,13 +1699,12 @@ def phase_scored_path(main_path: dict) -> dict:
     nq = 1000
     sub_gt = QueryResult(ids=gt.ids[:nq], distances=gt.distances[:nq])
     ref = f32_recall(128, queries[:nq], sub_gt)
-    before = {k.__name__: k.launches for k in counted}
+    before = read_counts()
     index.search_window_size = WIDE_CAPACITY
     t0 = time.perf_counter()
     res = index.search(queries[:nq], 10)
     wide_s = time.perf_counter() - t0
-    launches = {k.__name__: k.launches - before[k.__name__]
-                for k in counted}
+    launches = launched_since(before)
     recall = svt.k_recall_at_n(sub_gt, res)
     log(f"scored path: wide search capacity {WIDE_CAPACITY} window "
         f"{WIDE_CAPACITY}, {nq} queries in {wide_s:.2f} s, recall@10 "
@@ -1498,12 +1716,12 @@ def phase_scored_path(main_path: dict) -> dict:
     if recall < ref:
         raise AssertionError(f"wide search recall {recall} < {ref}")
     out["wide"] = {"recall": recall, "seconds": wide_s, "ref": ref}
-    out["launches"] = {k.__name__: k.launches for k in counted}
+    out["launches"] = read_counts()
     log(f"scored path: launches {out['launches']}")
     return out
 
 
-def phase_dynamic(main_path: dict) -> int:
+def phase_dynamic(main_path: dict) -> dict:
     """The dynamic index at the main path's scale on the card: an 80k build
     in storage for 84k, bf16 packed serving and sampled entries, four
     cycles of 5,000 adds (the first grows the storage) and 5,000 deletes,
@@ -1513,14 +1731,14 @@ def phase_dynamic(main_path: dict) -> int:
     trip with deleted slots pending; DynamicFlat through the same
     mutations, exact at the end.  Counts start at 0 here; beam_step must
     launch in the build, every add and every search.  Returns the phase's
-    beam_step launches."""
+    beam_step launches, the index and its ReferenceDataset."""
     import scalablevectorsearch_tpu_torch as svt
     from scalablevectorsearch_tpu_torch.index.vamana.dynamic import (
         SLOT_DELETED, SLOT_VALID, _affected_by_deleted)
     from scalablevectorsearch_tpu_torch.ops.kernels.beam_step import (
         beam_step, beam_step_lvq)
     data, queries = main_path["data"], main_path["queries"]
-    beam_step.launches = beam_step_lvq.launches = 0
+    zero_counts()
     torch.cuda.reset_peak_memory_stats()
     ref = svt.ReferenceDataset(data, seed=0)
     pts, ids = ref.new_batch(DYN_ROWS)
@@ -1543,18 +1761,8 @@ def phase_dynamic(main_path: dict) -> int:
     def searched(label) -> None:
         """The sweep over the live set, every search launching beam_step
         and returning live ids only; then QPS at the window reached."""
-        before = beam_step.launches
-
-        def check(res, w):
-            nonlocal before
-            if beam_step.launches == before:
-                raise AssertionError(f"dynamic: {label}: beam_step not "
-                                     f"launched in the search at window {w}")
-            before = beam_step.launches
-            ref.check_ids(res)
-
         sweep(dv, queries, ref.groundtruth(queries, 10), f"dynamic: {label}",
-              check)
+              launch_check(beam_step, f"dynamic: {label}", ref.check_ids))
         times = []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -1625,7 +1833,7 @@ def phase_dynamic(main_path: dict) -> int:
     dynamic_flat_check(flat, queries, ref)
     log(f"dynamic: launches beam_step {beam_step.launches}, beam_step_lvq "
         f"{beam_step_lvq.launches}")
-    return beam_step.launches
+    return {"launches": beam_step.launches, "index": dv, "ref": ref}
 
 
 def dynamic_flat_check(flat, queries, ref, sample: int = 256) -> None:
@@ -1669,10 +1877,412 @@ def dynamic_flat_check(flat, queries, ref, sample: int = 256) -> None:
         raise AssertionError(f"dynamic flat recall {recall} < 0.999")
 
 
-def kernel_entry(name: str, replaces: str, launches: int, kern: dict,
+def counted_kernels() -> tuple:
+    """The wrappers of the five kernels, each with its launch count."""
+    from scalablevectorsearch_tpu_torch.ops.kernels.beam_step import (
+        beam_step, beam_step_lvq)
+    from scalablevectorsearch_tpu_torch.ops.kernels.beam_update import (
+        beam_update)
+    from scalablevectorsearch_tpu_torch.ops.kernels.gather_distance import (
+        gather_score_l2_partial, score_rows)
+    return (beam_step, beam_step_lvq, beam_update, score_rows,
+            gather_score_l2_partial)
+
+
+def zero_counts() -> None:
+    for kernel in counted_kernels():
+        kernel.launches = 0
+
+
+def read_counts() -> dict:
+    return {kernel.__name__: kernel.launches for kernel in counted_kernels()}
+
+
+def launched_since(before: dict) -> dict:
+    return {name: count - before[name]
+            for name, count in read_counts().items()}
+
+
+def phase_iterator(main_path: dict, dynamic: dict) -> dict:
+    """BatchIterator on the card: 32 queries x 10 pages of 10 over the main
+    index from its serving window (the default schedule); one query in pages of 64
+    past capacity 1024 into the wide route; the dynamic index after a soft
+    delete of the 128 live rows nearest query 0.  Counts start at 0 here;
+    every page launches beam_step but the wide ones, which launch
+    gather_score_l2_partial and no beam_step."""
+    import scalablevectorsearch_tpu_torch as svt
+    from scalablevectorsearch_tpu_torch.index.vamana.dynamic import (
+        SLOT_VALID)
+    index = main_path["index"].index
+    data, queries, gt = (main_path[key] for key in ("data", "queries", "gt"))
+    zero_counts()
+
+    def page(it, label):
+        """One page; fails unless beam_step launched and the page is
+        nearest-first without repeats."""
+        before = read_counts()
+        res = it.next()
+        if launched_since(before)["beam_step"] == 0:
+            raise AssertionError(f"iterator: {label}: beam_step not "
+                                 f"launched")
+        ids = res.ids[0][res.ids[0] >= 0]
+        if np.any(np.diff(res.distances[0][res.ids[0] >= 0]) < 0) or \
+                len(np.unique(ids)) != ids.size:
+            raise AssertionError(f"iterator: {label}: not nearest-first or "
+                                 f"repeats an id")
+        return res
+
+    nq = ITER_QUERIES
+    gt100 = svt.exhaustive_search(data, queries[:nq], 100).ids
+    # page from the serving window of the main path's sweep, as a user of
+    # the served index would (later phases move the index's window)
+    index.search_window_size = main_path["window"]
+    first = cover = 0
+    t0 = time.perf_counter()
+    for qi in range(nq):
+        it = svt.BatchIterator(index, queries[qi], batch_size=10)
+        pages = [page(it, f"query {qi} page {p}") for p in range(ITER_PAGES)]
+        ids = np.concatenate([p.ids[0] for p in pages])
+        if np.any(ids < 0) or len(np.unique(ids)) != ids.size:
+            raise AssertionError(f"iterator: query {qi}: pages overlap or "
+                                 f"run short")
+        first += len(set(pages[0].ids[0].tolist())
+                     & set(gt.ids[qi, :10].tolist()))
+        cover += len(set(ids.tolist()) & set(gt100[qi].tolist()))
+        it.restart()
+        if not np.array_equal(page(it, f"query {qi} restart").ids,
+                              pages[0].ids):
+            raise AssertionError(f"iterator: query {qi}: restart gives "
+                                 f"another first page")
+    main_s = time.perf_counter() - t0
+    first, cover = first / (10 * nq), cover / (100 * nq)
+    log(f"iterator: main index, {nq} queries x {ITER_PAGES} pages of 10 from "
+        f"window {main_path['window']} (+ a restart each) in {main_s:.2f} s: "
+        f"first-page recall@10 {first:.4f}, the {ITER_PAGES} pages cover "
+        f"{cover:.4f} of the exact top-100; launches {read_counts()}")
+    if first < 0.9 or cover < 0.95:
+        raise AssertionError(f"iterator: first-page recall {first} or "
+                             f"coverage {cover} too low")
+
+    # one query past capacity 1024: pages of 64 from window 64
+    schedule = svt.DefaultSchedule(64, 64)
+    it = svt.BatchIterator(index, queries[nq], batch_size=64,
+                           schedule=schedule)
+    got, wide = [], 0
+    t0 = time.perf_counter()
+    while wide < 2:
+        window, capacity = schedule.for_iteration(it.batch_number)
+        before = read_counts()
+        res = it.next()
+        launched = launched_since(before)
+        if capacity > 1024:
+            wide += 1
+            if launched["beam_step"] or not \
+                    launched["gather_score_l2_partial"]:
+                raise AssertionError(f"iterator: the page at capacity "
+                                     f"{capacity} took another route: "
+                                     f"{launched}")
+        elif not launched["beam_step"]:
+            raise AssertionError(f"iterator: page at capacity {capacity}: "
+                                 f"beam_step not launched")
+        live = res.ids[0] >= 0
+        if np.any(np.diff(res.distances[0][live]) < 0):
+            raise AssertionError(f"iterator: page at capacity {capacity} "
+                                 f"is not nearest-first")
+        got.append(res.ids[0][live])
+    ids = np.concatenate(got)
+    exact = svt.exhaustive_search(data, queries[nq:nq + 1], ids.size).ids[0]
+    overlap = len(set(ids.tolist()) & set(exact.tolist())) / ids.size
+    log(f"iterator: one query, {len(got)} pages of 64 up to window {window} "
+        f"capacity {capacity} ({wide} on the wide route) in "
+        f"{time.perf_counter() - t0:.2f} s: {ids.size} ids yielded "
+        f"({len(np.unique(ids))} distinct; pages short of 64 once the "
+        f"reachable rows run out: {sum(g.size < 64 for g in got)}), "
+        f"{overlap:.4f} of them in the exact top-{ids.size}; done "
+        f"{it.done()}")
+    if len(np.unique(ids)) != ids.size:
+        raise AssertionError("iterator: deep pages repeat an id")
+
+    # the dynamic index after a soft delete of query 0's 128 nearest rows
+    dv, ref = dynamic["index"], dynamic["ref"]
+    dyn = dv.index
+    doomed = ref.groundtruth(queries[:1], 128)[0]
+    dv.delete_points(doomed)
+    dead = set(doomed.tolist())
+    live_total, partial = 0, 0
+    for qi in range(8):
+        it = svt.BatchIterator(dyn, queries[qi], batch_size=10)
+        for p in range(5):
+            res = page(it, f"dynamic query {qi} page {p}")
+            slots = res.ids[0][res.ids[0] >= 0]
+            ext = dyn.translator.to_external(slots)
+            if slots.size == 0 or np.any(slots >= dyn.data.n) or \
+                    np.any(dyn.status[slots] != SLOT_VALID) or \
+                    dead & set(ext.tolist()) or \
+                    any(int(e) not in ref.live for e in ext):
+                raise AssertionError(f"iterator: dynamic query {qi} page "
+                                     f"{p} yields slots {slots}")
+            live_total += slots.size
+            partial += slots.size < 10
+        if it.done():
+            raise AssertionError(f"iterator: dynamic query {qi} exhausted")
+    log(f"iterator: dynamic index ({dv.size} live, 128 deleted near query "
+        f"0): 8 queries x 5 pages yield {live_total} live ids, {partial} "
+        f"pages short of 10, no deleted or unknown id")
+    counts = read_counts()
+    log(f"iterator: launches {counts}")
+    return counts
+
+
+def phase_calibrate(main_path: dict) -> dict:
+    """calibrate_full on the main index: target recall@10 0.9 with 1000
+    calibration queries, the winner's recall on the other 4000 >= 0.89;
+    the same with the int8 upload axis; an unreachable target.  Which
+    feasible configuration wins is decided by host-clock QPS, which is
+    noise on this card, so only recall is checked.  Counts start at 0
+    here; beam_step must launch."""
+    import scalablevectorsearch_tpu_torch as svt
+    from scalablevectorsearch_tpu_torch.index.vamana import index as index_mod
+    from scalablevectorsearch_tpu_torch.index.vamana.calibrate import (
+        calibrate_full)
+    index = main_path["index"].index
+    queries, gt = main_path["queries"], main_path["gt"].ids
+    n_cal = 1000
+    zero_counts()
+    dtypes, search = [], index.search
+
+    def spy(*args, **kwargs):
+        dtypes.append(index.query_upload_dtype)
+        return search(*args, **kwargs)
+
+    def run(label, target, params):
+        dtypes.clear()
+        t0 = time.perf_counter()
+        res = calibrate_full(index, queries[:n_cal], gt[:n_cal], 10, target,
+                             params)
+        seconds = time.perf_counter() - t0
+        state = (index.search_parameters, index.pop_width, index.tail_frac,
+                 index._packed is not None, index.query_upload_dtype)
+        if state != (res.search_parameters, res.pop_width, res.tail_frac,
+                     res.packed, res.query_upload_dtype):
+            raise AssertionError(f"calibrate: {label}: the winner is not "
+                                 f"set on the index")
+        held = svt.k_recall_at_n(gt[n_cal:], index.search(queries[n_cal:],
+                                                          10))
+        cfg = res.search_parameters.buffer_config
+        log(f"calibrate: {label}: {res.trials} trials in {seconds:.2f} s; "
+            f"winner window {cfg.search_window_size} capacity "
+            f"{cfg.search_buffer_capacity} pop_width {res.pop_width} "
+            f"tail_frac {res.tail_frac} packed {res.packed} upload "
+            f"{res.query_upload_dtype}; recall@10 {res.recall:.4f} on the "
+            f"{n_cal} calibration queries, {held:.4f} on the other "
+            f"{len(queries) - n_cal}; {res.qps:.1f} QPS (host clock, "
+            f"noisy); searched under uploads {sorted(set(map(str, dtypes)))}")
+        return res, held
+
+    index.search = spy
+    try:
+        res, held = run("target 0.9", 0.9, None)
+        if res.recall < 0.9 or held < 0.89:
+            raise AssertionError(f"calibrate: recall {res.recall}, held-out "
+                                 f"{held}")
+        res, held = run("target 0.9, int8 axis", 0.9,
+                        svt.CalibrationParameters(try_int8_uploads=True))
+        if held < 0.89 or set(dtypes) != {None, "int8"}:
+            raise AssertionError(f"calibrate: int8 axis: held-out {held}, "
+                                 f"uploads searched {set(dtypes)}")
+        uploads, prepare = [], index_mod.prepare_query_upload
+
+        def record(q_host, override=None):
+            out = prepare(q_host, override)
+            uploads.append(out[0].dtype)
+            return out
+
+        index_mod.prepare_query_upload = record
+        try:
+            search(queries[n_cal:], 10)
+        finally:
+            index_mod.prepare_query_upload = prepare
+        want = torch.int8 if res.query_upload_dtype == "int8" else \
+            torch.float16
+        log(f"calibrate: int8 axis winner {res.query_upload_dtype}: the "
+            f"index's search uploads {uploads}")
+        if uploads != [want]:
+            raise AssertionError(f"calibrate: the index uploads {uploads}, "
+                                 f"not {want}")
+        res, _ = run("unreachable target 1.01", 1.01,
+                     svt.CalibrationParameters(search_window_upper=64))
+        if res.search_parameters.buffer_config.search_window_size != 64 or \
+                res.qps != 0.0:
+            raise AssertionError("calibrate: unreachable target did not "
+                                 "return the best effort at window 64")
+    finally:
+        del index.search
+        index.query_upload_dtype = None
+    counts = read_counts()
+    log(f"calibrate: launches {counts}")
+    if counts["beam_step"] == 0:
+        raise AssertionError("calibrate: beam_step not launched")
+    return counts
+
+
+def leanvec_rerank_check(lv, queries, k: int = 10) -> int:
+    """The reranked search of ``queries`` against float64 on the host: the
+    fetched k * rerank_multiplier ids re-scored with the secondary's
+    decoded rows and the f32 queries.  Every returned id must be fetched,
+    its distance the host's within 8 f32 epsilons of ||q||^2 + ||x||^2
+    (the norm algebra's rounding), and the returned distances the host's
+    k smallest within that rounding (ids may differ only at ties).
+    Returns the queries whose ids differ from the host's order."""
+    got = lv.search(queries, k)
+    fetch = k * lv.rerank_multiplier
+    fetched = lv.index.search(lv.leanvec.project_queries(queries), fetch).ids
+    sec = lv.leanvec.secondary
+    flat = torch.from_numpy(np.maximum(fetched, 0).reshape(-1)).to(
+        sec.device)
+    rows = sec.get(flat)[:, : sec.dim].cpu().numpy().astype(np.float64)
+    rows = rows.reshape(len(queries), fetch, sec.dim)
+    q = queries.astype(np.float64)
+    dist = ((rows - q[:, None, :]) ** 2).sum(-1)
+    dist[fetched < 0] = np.inf
+    tol = 8 * np.finfo(np.float32).eps * ((rows ** 2).sum(-1)
+                                          + (q ** 2).sum(-1)[:, None])
+    differ = 0
+    for i in range(len(queries)):
+        pos = [np.flatnonzero(fetched[i] == g) for g in got.ids[i]]
+        if any(p.size == 0 for p in pos):
+            raise AssertionError(f"leanvec: query {i} returns ids it did "
+                                 f"not fetch")
+        pos = np.array([p[0] for p in pos])
+        host = np.sort(dist[i])[:k]
+        if np.any(np.abs(got.distances[i] - dist[i][pos]) > tol[i][pos]) or \
+                np.any(np.abs(got.distances[i] - host) > tol[i][pos]):
+            raise AssertionError(f"leanvec: query {i}: distances "
+                                 f"{got.distances[i]}, host {host}")
+        differ += not np.array_equal(
+            got.ids[i], fetched[i][np.argsort(dist[i], kind="stable")[:k]])
+    return differ
+
+
+def phase_leanvec(main_path: dict) -> dict:
+    """LeanVec over the main path's data, PCA and OOD (phase 14).  Counts
+    start at 0 here; the builds and every search launch beam_step_lvq."""
+    import scalablevectorsearch_tpu_torch as svt
+    from scalablevectorsearch_tpu_torch.ops.kernels.beam_step import (
+        beam_step_lvq)
+    data, queries, gt = (main_path[key] for key in ("data", "queries", "gt"))
+    zero_counts()
+    # the OOD query training set: 10,000 more queries of the main path's
+    # clusters (its generator and seed, 42, with more queries), none of
+    # them a test query
+    _, more = svt.generate_test_dataset(data.shape[0], len(queries) + 10_000,
+                                        data.shape[1], seed=42)
+    train_q = more[len(queries):]
+    if {r.tobytes() for r in train_q} & {r.tobytes() for r in queries}:
+        raise AssertionError("leanvec: a training query is a test query")
+    out = {}
+
+    for mode, train in (("PCA", None), ("OOD", train_q)):
+        t0 = time.perf_counter()
+        lvd = svt.LeanVecDataset.train(data, LEANVEC_DIM, queries=train)
+        sync()
+        train_s = time.perf_counter() - t0
+        before = beam_step_lvq.launches
+        t0 = time.perf_counter()
+        lv = svt.LeanVecVamana.build(main_path_params(), lvd, "l2",
+                                     sampled_entries=True)
+        sync()
+        build_s = time.perf_counter() - t0
+        build_launches = beam_step_lvq.launches - before
+        size = {level: nbytes(ds.codes[: ds.n], ds.scales[: ds.n],
+                              ds.biases[: ds.n])
+                for level, ds in (("primary", lvd.primary),
+                                  ("secondary", lvd.secondary))}
+        log(f"leanvec: {mode} train {data.shape[0]}x{data.shape[1]} -> "
+            f"{lvd.reduced_dim} in {train_s:.2f} s; build in {build_s:.2f} "
+            f"s, mean degree {lv.index.graph.mean_degree():.3f}, "
+            f"beam_step_lvq launches {build_launches}; codes, scales and "
+            f"biases {size} bytes, graph "
+            f"{nbytes(lv.index.graph.adjacency)} bytes")
+        if build_launches == 0:
+            raise AssertionError(f"leanvec: {mode} build: beam_step_lvq not "
+                                 f"launched")
+        if train is None:
+            # PCA's map is orthonormal: the share of the centered data's
+            # variance, and of the squared distances from 256 queries to
+            # their exact ten nearest, that its dimensions keep
+            cen = data - lvd.mean
+            var = float(((cen @ lvd.projection) ** 2).sum()
+                        / (cen ** 2).sum())
+            diff = queries[:256, None, :] - data[gt.ids[:256]]
+            near = float(((diff @ lvd.projection) ** 2).sum()
+                         / (diff ** 2).sum())
+            log(f"leanvec: PCA's {lvd.reduced_dim} of {data.shape[1]} "
+                f"dimensions keep {var:.4f} of the data's variance and "
+                f"{near:.4f} of the squared distance from a query to its "
+                f"exact ten nearest")
+        pq = lvd.project_queries(queries)
+        primary_gt = svt.exhaustive_search(lvd.primary, pq, 10)
+        window, primary = sweep(lv.index, pq, primary_gt,
+                                f"leanvec: {mode} primary search against the "
+                                f"exact search over the decoded primary",
+                                launch_check(beam_step_lvq, f"leanvec: {mode} "
+                                             f"primary search"))
+        check = launch_check(beam_step_lvq, f"leanvec: {mode} reranked search")
+        # windows below the fetch of k * rerank_multiplier search at the
+        # fetch's width, so the sweep starts there
+        fetch = 10 * lv.rerank_multiplier
+        steps = []
+        for w in (fetch,) + tuple(w for w in WINDOWS if w > fetch):
+            lv.search_window_size = w
+            t0 = time.perf_counter()
+            res = lv.search(queries, 10)
+            seconds = time.perf_counter() - t0
+            check(res, w)
+            steps.append((w, svt.k_recall_at_n(gt, res),
+                          len(queries) / seconds))
+        log(f"leanvec: {mode} search (fetch {fetch}, rerank over the "
+            f"secondary): window:recall@10 against the f32 truth/QPS (host "
+            f"clock, noisy) "
+            + " ".join(f"{w}:{r:.4f}/{q:.0f}" for w, r, q in steps))
+        # the projection's ceiling: the exact top-c of the projected search
+        # (the decoded primary), reranked as the search reranks
+        ceiling = {c: svt.k_recall_at_n(gt, lv.rerank(
+            queries, svt.exhaustive_search(lvd.primary, pq, c).ids, 10))
+            for c in (fetch, 100)}
+        log(f"leanvec: {mode} exact projected top-c reranked, f32-truth "
+            f"recall@10: " + " ".join(f"c {c}: {r:.4f}"
+                                      for c, r in ceiling.items()))
+        lv.search_window_size = window
+        differ = leanvec_rerank_check(lv, queries[:256])
+        log(f"leanvec: {mode} rerank at window {window}: 256 queries equal "
+            f"the float64 host rerank of the fetched ids within f32 "
+            f"rounding; {differ} with tied ids in another order")
+        loaded = round_trip(
+            f"{mode} LeanVec index save / assemble", lv.save,
+            lambda tmp: svt.LeanVecVamana.assemble(
+                tmp, device=lvd.primary.device), path="leanvec")
+        loaded.search_window_size = window
+        same_search(f"{mode} LeanVec", lv, loaded, queries, (beam_step_lvq,),
+                    path="leanvec")
+        out[mode] = {"window": window, "primary_recall": primary,
+                     "ceiling": ceiling[fetch],
+                     "build_s": build_s, "build_launches": build_launches}
+        del lv, lvd, loaded
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    log(f"leanvec: launches {counts}; f32-truth recall@10 of the exact "
+        f"projected top-30 reranked: PCA {out['PCA']['ceiling']:.4f}, OOD "
+        f"{out['OOD']['ceiling']:.4f}")
+    out["launches"] = counts
+    return out
+
+
+def kernel_entry(name: str, replaces: str, by_path: dict, kern: dict,
                  shape: str, build_s: float,
                  source: str = "beam_step.cu") -> dict:
-    """One kernel's entry of the summary line: times and bound at the main
+    """One kernel's entry of the summary line: its launches summed over
+    the paths (``by_path``: path -> launches); times and bound at the main
     path's shape ``shape`` (``ms``: device time per raw launch;
     ``call_ms``: one call of the Python wrapper, its host work included);
     every shape's numbers under ``ms_by_shape``.  ``library_ms`` is one
@@ -1681,7 +2291,8 @@ def kernel_entry(name: str, replaces: str, launches: int, kern: dict,
     t = kern["timings"][shape]
     return {"name": name, "route": "cuda",
             "source": f"scalablevectorsearch_tpu_torch/csrc/{source}",
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": kern["max_abs_err"], "ms": t["ms"],
             "call_ms": t["call_ms"], "issue_ms": t["issue_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -1710,31 +2321,53 @@ def main(argv: list) -> int:
             **{name: k["timings"] for name, k in kern_scored.items()}}}))
         print(json.dumps({"ok": True, "device": device}))
         return 0
+    t0 = time.perf_counter()
     main_path = phase_main_path()
-    main_launches = main_path["launches"]
     phase_persistence(main_path)
     phase_host_rerank(main_path)
     lvq_path = phase_lvq_path(main_path)
     scored = phase_scored_path(main_path)["launches"]
-    dynamic_launches = phase_dynamic(main_path)
+    dynamic = phase_dynamic(main_path)
+    # launches per path of each kernel; the persistence, host rerank and
+    # golden phases check their own
+    by_path = {"main": {"beam_step": main_path["launches"]},
+               "lvq": lvq_path["launches"],
+               "scored": scored,
+               "dynamic": {"beam_step": dynamic["launches"]}}
+    with step_shapes() as seen:
+        by_path["iterator"] = phase_iterator(main_path, dynamic)
+    del dynamic
+    check_step_shapes("iterator", seen)
+    with step_shapes() as seen:
+        by_path["calibrate"] = phase_calibrate(main_path)
+    check_step_shapes("calibrate", seen)
+    with step_shapes() as seen:
+        by_path["leanvec"] = phase_leanvec(main_path)["launches"]
+    check_step_shapes("leanvec", seen)
     del main_path                       # frees the 100k index
     phase_golden()
+    log(f"paths: {time.perf_counter() - t0:.1f} s from the main path's "
+        f"build to the end of the golden gate")
     pallas = "scalablevectorsearch_tpu/ops/pallas/"
+
+    def launches(name):
+        return {path: counts[name] for path, counts in by_path.items()
+                if counts.get(name)}
+
     print(json.dumps({"kernels": [
         kernel_entry("beam_step", pallas + "beam_step.py:261",
-                     main_launches + dynamic_launches, kern,
-                     "serving_bf16", build_s),
+                     launches("beam_step"), kern, "serving_bf16", build_s),
         kernel_entry("beam_step_lvq", pallas + "beam_step.py:327",
-                     lvq_path["launches"], kern_lvq, "serving", build_s),
+                     launches("beam_step_lvq"), kern_lvq, "serving", build_s),
         kernel_entry("beam_update", pallas + "beam_update.py:179",
-                     scored["beam_update"], kern_scored["beam_update"],
+                     launches("beam_update"), kern_scored["beam_update"],
                      "serving", build_s),
         kernel_entry("score_rows", pallas + "gather_distance.py:41",
-                     scored["score_rows"], kern_scored["score_rows"], "f32",
+                     launches("score_rows"), kern_scored["score_rows"], "f32",
                      build_s, source="gather_distance.cu"),
         kernel_entry("gather_score_l2_partial",
                      pallas + "gather_distance.py:131",
-                     scored["gather_score_l2_partial"],
+                     launches("gather_score_l2_partial"),
                      kern_scored["gather_score_l2_partial"], "float16",
                      build_s, source="gather_distance.cu")]}))
     print(json.dumps({"ok": True, "device": device}))

@@ -2,7 +2,10 @@
 scalablevectorsearch_tpu.
 
 Static Vamana build and batched search over f32/bf16/float16/int8/uint8,
-scalar-quantized (SQ) and LVQ-compressed datasets; the dynamic indexes
+scalar-quantized (SQ) and LVQ-compressed datasets; LeanVec
+(``LeanVecDataset`` / ``LeanVecVamana``: search over projected LVQ codes
+with a full-dimension rerank); paged retrieval (``BatchIterator``) and
+search-parameter calibration (``calibrate``); the dynamic indexes
 (``MutableVamanaIndex`` / ``DynamicVamana``: add, soft delete, consolidate,
 compact; ``DynamicFlatIndex`` / ``DynamicFlat``; the multi-vector
 ``MultiMutableVamanaIndex``); flat exhaustive search for ground truth,
@@ -28,8 +31,11 @@ from .core.recall import k_recall_at_n
 from .core.translation import IDTranslator
 from .index.dynamic_flat import DynamicFlatIndex
 from .index.flat import FlatIndex, exhaustive_search
+from .index.vamana.calibrate import CalibrationParameters, calibrate
 from .index.vamana.dynamic import MutableVamanaIndex
 from .index.vamana.index import VamanaIndex
+from .index.vamana.iterator import (BatchIterator, DefaultSchedule,
+                                    LinearSchedule)
 from .index.vamana.multi import MultiMutableVamanaIndex
 from .index.vamana.params import (SearchBufferConfig, VamanaBuildParameters,
                                   VamanaSearchParameters)
@@ -37,6 +43,7 @@ from .ops.distance import DistanceType, as_distance
 from .orchestrators.dynamic_vamana import DynamicFlat, DynamicVamana
 from .orchestrators.flat import Flat
 from .orchestrators.vamana import Vamana
+from .quantization.leanvec import LeanVecDataset, LeanVecVamana
 from .quantization.lvq import LVQDataset
 from .quantization.scalar import SQDataset
 from .utils.dynamic_helper import ReferenceDataset
@@ -55,4 +62,6 @@ __all__ = [
     "SearchBufferConfig", "Vamana", "LVQDataset", "SQDataset",
     "MutableVamanaIndex", "MultiMutableVamanaIndex", "DynamicVamana",
     "DynamicFlat", "DynamicFlatIndex", "IDTranslator", "ReferenceDataset",
+    "LeanVecDataset", "LeanVecVamana", "BatchIterator", "DefaultSchedule",
+    "LinearSchedule", "CalibrationParameters", "calibrate",
 ]

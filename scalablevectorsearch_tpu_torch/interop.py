@@ -22,6 +22,11 @@ carries across through :func:`dynamic_vamana_from_arrays`, from the arrays
 its ``save`` writes: the rows and the slot ``status`` up to the high-water
 mark ``idx.data.n``, ``idx.translator.to_external(np.arange(n))``, the
 adjacency, the entry point, ``idx.parameters`` and ``idx.data.capacity``.
+A JAX ``LeanVecDataset`` carries across through :func:`leanvec_from_arrays`
+(its ``mean``, ``projection``, ``query_projection`` and ``query_mean``, and
+its ``primary`` and ``secondary`` as :func:`lvq_from_arrays` arguments); a
+``LeanVecVamana`` is then ``LeanVecVamana(vamana_from_arrays(primary, ...),
+leanvec)``.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from .index.vamana.dynamic import MutableVamanaIndex
 from .index.vamana.entry import build_sampler
 from .index.vamana.index import VamanaIndex
 from .index.vamana.params import VamanaBuildParameters
+from .quantization.leanvec import LeanVecDataset
 from .quantization.lvq import LVQDataset, _unpack4
 from .quantization.scalar import SQDataset
 
@@ -85,6 +91,25 @@ def lvq_from_arrays(codes, scales, biases, mean, *, n: int, dim: int,
         else None,
         res_scales=np.asarray(res_scales)[:n] if residual_bits else None,
         device=device)
+
+
+def leanvec_from_arrays(mean, projection, primary: dict, secondary: dict, *,
+                        query_projection=None, query_mean=None,
+                        device="cuda") -> LeanVecDataset:
+    """A JAX ``LeanVecDataset``'s numpy state -> the port's
+    ``LeanVecDataset``.  ``primary`` and ``secondary`` are the keyword
+    arguments of :func:`lvq_from_arrays` for the two LVQ datasets;
+    ``query_projection`` / ``query_mean`` are left ``None`` for a PCA
+    dataset, whose query map is its data map."""
+    return LeanVecDataset(
+        mean=np.array(mean, dtype=np.float32),
+        projection=np.array(projection, dtype=np.float32),
+        primary=lvq_from_arrays(**primary, device=device),
+        secondary=lvq_from_arrays(**secondary, device=device),
+        query_projection=None if query_projection is None else
+        np.array(query_projection, dtype=np.float32),
+        query_mean=None if query_mean is None else
+        np.array(query_mean, dtype=np.float32))
 
 
 def sq_from_arrays(codes, scale, bias, *, n: int, dim: int, device="cuda"

@@ -628,3 +628,65 @@ def test_dynamic_index_on_gpu_matches_cpu(cuda):
                                       rows.float().mean())
         if name != "add":
             assert not np.isin(got.ids, dead).any(), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", [0, 1, 2])
+@pytest.mark.parametrize("label", [label for label, _ in
+                                   chip_smoke.LEANVEC_CHECK_SHAPES])
+def test_lvq_kernel_leanvec_dead_lanes(cuda, label, metric):
+    """LeanVec's primary: 64 live lanes of 128 (n_dead 64), at the serving,
+    tail and build shapes; on exact (grid) inputs all five outputs equal
+    beam_step_lvq_plain's."""
+    shape = dict(chip_smoke.LEANVEC_CHECK_SHAPES)[label]
+    n_dead = 128 - chip_smoke.LEANVEC_DIM
+    _b, _c, _k, _d, window, m = shape
+    args = chip_smoke.make_lvq_case(np.random.default_rng(sum(shape) + metric),
+                                    shape, n_dead, grid=True)
+    kw = dict(metric=metric, window=window, m=m, n_dead=n_dead)
+    before = bs.beam_step_lvq.launches
+    got = bs.beam_step_lvq(*args, **kw)
+    want = bs.beam_step_lvq_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert bs.beam_step_lvq.launches == before + 1
+    for name, g, w in zip(("keys", "packed", "popped", "pool_keys",
+                           "pool_ids"), got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.gpu
+def test_leanvec_search_on_gpu_matches_cpu(cuda, tmp_path):
+    """One LeanVec index (2000 x 48 to 24 dimensions, OOD) trained and built
+    on the CPU, saved and assembled onto the card: over the CPU's graph the
+    card's reranked search gives the CPU's ids on >= 99% of slots and
+    distances within 1e-5 of ||q||^2 + ||x||^2, launching beam_step_lvq; a
+    build on the card launches it too."""
+    from scalablevectorsearch_tpu_torch.quantization.leanvec import (
+        LeanVecDataset, LeanVecVamana)
+    data, queries = svt.generate_test_dataset(2000, 200, 48, seed=7)
+    params = svt.VamanaBuildParameters(graph_max_degree=16, window_size=32,
+                                       max_candidate_pool_size=64,
+                                       prune_to=14)
+    cpu = LeanVecVamana.build(params, data, "l2", queries=queries[100:],
+                              device="cpu")
+    cpu.save(str(tmp_path))
+    card = LeanVecVamana.assemble(str(tmp_path), device="cuda")
+    assert card.leanvec.primary.device.type == "cuda"
+    cpu.search_window_size = card.search_window_size = 20
+    before = bs.beam_step_lvq.launches
+    got = card.search(queries[:100], 10)
+    assert bs.beam_step_lvq.launches > before
+    want = cpu.search(queries[:100], 10)
+    same = np.sort(got.ids, 1) == np.sort(want.ids, 1)
+    assert same.mean() >= 0.99, same.mean()
+    exact = got.ids == want.ids
+    qn = (queries[:100].astype(np.float64) ** 2).sum(1)
+    xn = cpu.leanvec.secondary.norms_sq.numpy()
+    scale = qn[:, None] + xn[np.maximum(got.ids, 0)]
+    assert np.all(np.abs(got.distances - want.distances)[exact]
+                  <= 1e-5 * scale[exact])
+    before = bs.beam_step_lvq.launches
+    built = LeanVecVamana.build(params, LeanVecDataset.train(
+        data, queries=queries[100:], device="cuda"), "l2")
+    assert bs.beam_step_lvq.launches > before
+    assert built.index.graph.adjacency.device.type == "cuda"

@@ -28,6 +28,9 @@ PORT_MODULES = [
     "scalablevectorsearch_tpu_torch.index.vamana.multi, "
     "scalablevectorsearch_tpu_torch.orchestrators.dynamic_vamana, "
     "scalablevectorsearch_tpu_torch.utils.dynamic_helper",
+    "scalablevectorsearch_tpu_torch.quantization.leanvec, "
+    "scalablevectorsearch_tpu_torch.index.vamana.iterator, "
+    "scalablevectorsearch_tpu_torch.index.vamana.calibrate",
 ]
 
 

@@ -13,10 +13,16 @@ profiles with ``torch.profiler``:
     scored route) at window 11 and SQ-int8 rows unpacked at window 12;
   - one build round (B 2500, window 100, pool 300, pass-2 alpha) over the
     f32 rows, over LVQ-8 codes and over SQ-int8 codes (the scored route);
+  - LeanVec (PCA to 64 dimensions, built with the same parameters): one
+    reranked ``search`` of 5000 queries at window 11 (the fetch of 30
+    makes it 30); the batch iterator over the main index: a first page of
+    10 at window 20 (B 8), and a page of 64 at capacity 1088 (the wide
+    route, after 15 pages of 64);
   - the dynamic index over the f32 graph and rows: one add round (B 125,
     as ``add_points`` runs 5,000 rows), one consolidation batch (1024
     vertices after 10,000 soft deletes) and the medioid of the VALID rows
     that ``compact`` and an entry-point delete recompute.
+Calibration is a sequence of the searches above and has no row.
 For each it prints the wall time with the profiler on, the device busy
 time (the sum of the device-side events' times: kernels and copies), the
 device's idle share, the share of the beam-step kernels (beam_step,
@@ -175,8 +181,33 @@ def main() -> int:
             rev_alpha=params.alpha, prune_to=params.prune_to,
             max_degree=params.graph_max_degree, prune_chunk=256,
             pop_width=4, tail_frac=4))
+    profile_leanvec_iterator(index, data, queries, params)
     profile_dynamic(index, params.resolved("l2"))
     return 0
+
+
+def profile_leanvec_iterator(index, data, queries, params) -> None:
+    """A LeanVec search, and iterator pages over ``index``."""
+    import scalablevectorsearch_tpu_torch as svt
+    t0 = time.perf_counter()
+    lv = svt.LeanVecVamana.build(params, data, "l2", target_dim=64,
+                                 sampled_entries=True)
+    torch.cuda.synchronize()
+    print(f"LeanVec PCA 64 train + build {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    lv.search_window_size = 11
+    profiled("serving LeanVec PCA 64 (LVQ-8 primary, rerank of 30 over the "
+             "LVQ-8 secondary), window 11", lambda: lv.search(queries, 10))
+    del lv
+    index.search_window_size = 20
+    profiled("iterator first page of 10, window 20 (B 8)",
+             lambda: svt.BatchIterator(index, queries[0], 10).next())
+    it = svt.BatchIterator(index, queries[1], 64,
+                           schedule=svt.DefaultSchedule(64, 64))
+    for _ in range(15):
+        it.next()
+    profiled("iterator page of 64 at capacity 1088 / 1152 (wide route)",
+             it.next)
 
 
 def profile_dynamic(index, params, device="cuda") -> None:
