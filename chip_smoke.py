@@ -119,11 +119,46 @@ Phases, one line of detail each (any failure exits non-zero):
      assemble round trip searched identically; every search and the build
      launching beam_step_lvq;
   15. golden gate: the L2, MIP and cosine rows of
-     data/golden/vamana_reference.json and the bf16, SQ-int8, LVQ-8 and
-     LVQ8x8 rows of data/golden/torch_kinds_reference.json (written by
-     tools/make_torch_kinds_golden.py with the JAX package) within +-0.05
-     recall (GOLDEN_TOL).
-Each path (6-14) starts with every launch count at 0 and reads them at
+     data/golden/vamana_reference.json within +-0.05 recall (GOLDEN_TOL),
+     the bf16, SQ-int8, LVQ-8 and LVQ8x8 rows of
+     data/golden/torch_kinds_reference.json (written by
+     tools/make_torch_kinds_golden.py with the JAX package) within +-0.01
+     (GOLDEN_KINDS_TOL), the IVF rows of data/golden/ivf_reference.json
+     (L2 / MIP / cosine at n_probes 1, 4, 16, 32) within +-0.05 (but
+     for the four rows GOLDEN_IVF_UNGATED names, printed only) and the
+     inverted rows of data/golden/inverted_reference.json (epsilons 0,
+     0.25, 1 at max_probes 32) within +-0.03, each built as
+     benchmark/runner.py builds it;
+  16. IVF over the main path's data (after 14, before 15): bench.py's
+     configuration (3 sqrt(n) = 948 centroids, minibatch k-means, 10
+     iterations, every row trained on, f32 rows, query batches of 2500);
+     training seconds and a second training with the same seed (identical
+     centroids and assignments); slot and padding factor; the probe sweep
+     over (1 .. 128) to recall@10 >= 0.9 and QPS there; a full probe
+     (misses only ties of the 10th distance, 256 queries' distances
+     against float64 on the host); the row-gather scan route
+     (SVT_IVF_SCAN_LAYOUT=0) giving the super-row route's ids but at
+     near-ties proven on the host; a
+     hierarchical training and its sweep; LVQ-8 postings with the rerank
+     at k_reorder 3, swept; save / assemble_from_file (identical search)
+     and save_packed_layout_host (bf16 rows, recall reported);
+     IVFBatchIterator, 32 queries x 10 pages of 10 (disjoint, none short,
+     restart repeats page one, top-100 coverage reported); DynamicIVF over
+     80,000 rows (ReferenceDataset seed 0): two cycles of 5,000 adds and
+     5,000 deletes and a compact, the probe sweep against the exact search
+     over the live set after every step (no deleted or unknown id),
+     seconds and probe units per step.  No kernel of the repo is on this
+     path: the posting scan is PyTorch code;
+  17. inverted index over the main path's data (after 16): the defaults
+     (10,000 centroids, the default Vamana primary, epsilon 0.05, 8
+     replicas); the build split into primary graph, closure assignment and
+     packing, slot, padding, mean replicas and the layout's bytes; the
+     sweep over max_probes 16, 32 x epsilon 0, 0.25, 1, 2 to recall@10 >=
+     0.9 and QPS there; 256 queries' distances against float64 on the
+     host; a save / assemble round trip searched identically; beam_step
+     launching in the build and every search, then held to its plain
+     version at every call the phase made, as in 12.
+Each path (6-14, 16, 17) starts with every launch count at 0 and reads them at
 its end.  The line before the last is the JSON summary of the five
 kernels (beam_step, beam_step_lvq, beam_update, score_rows,
 gather_score_l2_partial; each kernel's launches are the sum over the
@@ -175,14 +210,18 @@ STEP_SHAPES = (("serving", SERVING_SHAPE), ("build", BUILD_SHAPE),
 # each add_points round runs 125 rows at the build window; the iterator
 # pages one query (B 8) at capacity window + batch, up to 1024 before the
 # wide route; calibration searches 1000 queries at pop width 8 (K 256) up
-# to its window bound of 512, and at the compacted tail of a quarter
+# to its window bound of 512, and at the compacted tail of a quarter; the
+# inverted index searches its 10,000 centroids (R 32) at window 32 in
+# batches of 1672, and builds them in rounds of 250 at pop width 1
 UNTIMED_STEP_SHAPES = (("dynamic serving", (2048, 20, 128, 128, 11, 4)),
                        ("dynamic tail", (418, 20, 128, 128, 11, 4)),
                        ("dynamic add", (125, 100, 128, 128, 100, 4)),
                        ("iterator first page", (8, 21, 128, 128, 11, 4)),
                        ("iterator deep page", (8, 1024, 128, 128, 960, 4)),
                        ("calibrate widest", (1000, 512, 256, 128, 512, 8)),
-                       ("calibrate tail", (250, 16, 256, 128, 10, 8)))
+                       ("calibrate tail", (250, 16, 256, 128, 10, 8)),
+                       ("inverted serving", (1672, 32, 128, 128, 32, 4)),
+                       ("inverted build", (250, 200, 32, 128, 200, 1)))
 WINDOWS = (11, 12, 13, 14, 16, 20, 24, 32, 48, 64, 96, 128)
 # Recall tolerance per golden row.  The cosine row moves by up to 0.097 in
 # the JAX package itself when only the build batch size changes, but the
@@ -190,6 +229,23 @@ WINDOWS = (11, 12, 13, 14, 16, 20, 24, 32, 48, 64, 96, 128)
 # digit (0.3730 / 0.4796 / 0.5642 / 0.6656 in every run since the beam-step
 # redesign), so all three rows are held to +-0.05.
 GOLDEN_TOL = {"L2": 0.05, "MIP": 0.05, "Cosine": 0.05}
+# The card reproduces the four kinds' rows within 0.0016, and a bf16 row
+# computed in f32 would pass +-0.05 at three of its windows: +-0.01.
+GOLDEN_KINDS_TOL = 0.01
+# IVF rows (data/golden/ivf_reference.json): the port's k-means++ draws
+# differ from the JAX package's by design, so +-0.05; the inverted rows
+# (inverted_reference.json) draw only numpy generators: +-0.03, the JAX
+# package's own tolerance.
+GOLDEN_IVF = os.path.join(HERE, "data", "golden", "ivf_reference.json")
+GOLDEN_INVERTED = os.path.join(HERE, "data", "golden",
+                               "inverted_reference.json")
+GOLDEN_IVF_TOL, GOLDEN_INVERTED_TOL = 0.05, 0.03
+# IVF rows that leave +-0.05 under some k-means++ generator seed on the CPU
+# (tools/ivf_golden_spread.py, seeds ^ 0..4: L2 and cosine at 1 probe by up
+# to 0.079 / 0.082, MIP at 1 and 4 probes by up to 0.124 / 0.097): printed
+# beside the reference, not gated.
+GOLDEN_IVF_UNGATED = {("L2", "1"), ("MIP", "1"), ("MIP", "4"),
+                      ("Cosine", "1")}
 TIMING_REPS = 20
 RAW_LAUNCHES = 50              # raw launches per timing window
 RAW_WINDOWS = 5
@@ -1344,7 +1400,9 @@ def golden_dataset(kind: str, data: np.ndarray):
 def phase_golden() -> None:
     """Every row of GOLDEN (f32 rows, three distances) and GOLDEN_KINDS
     (four dataset kinds, L2) built and searched on the card, recall@10
-    against the exact f32 search within GOLDEN_TOL of the row."""
+    against the exact f32 search within GOLDEN_TOL (GOLDEN_KINDS_TOL for
+    the kinds) of the row; then the IVF and inverted rows
+    (:func:`golden_ivf_rows`)."""
     import scalablevectorsearch_tpu_torch as svt
     bad = []
     for path in (GOLDEN, GOLDEN_KINDS):
@@ -1370,11 +1428,13 @@ def phase_golden() -> None:
                 truth[distance] = svt.exhaustive_search(data, queries, k,
                                                         distance)
             got = {}
+            tol = GOLDEN_KINDS_TOL if path == GOLDEN_KINDS else \
+                GOLDEN_TOL[distance]
             for window, want in entry["recalls"].items():
                 index.search_window_size = int(window)
                 got[window] = svt.k_recall_at_n(truth[distance],
                                                 index.search(queries, k))
-                if abs(got[window] - want) > GOLDEN_TOL[distance]:
+                if abs(got[window] - want) > tol:
                     bad.append(f"{distance} {kind} w{window} "
                                f"{got[window]:.4f} vs {want}")
             launched = {name: n for name, n in launched_since(before).items()
@@ -1383,9 +1443,69 @@ def phase_golden() -> None:
                 + " ".join(f"w{w}:{r:.4f}(ref {entry['recalls'][w]})"
                            for w, r in got.items())
                 + f"; launches {launched}")
+    golden_ivf_rows(bad)
     if bad:
         raise AssertionError("golden recall outside tolerance: "
                              + "; ".join(bad))
+
+
+def golden_ivf_rows(bad: list) -> None:
+    """The rows of GOLDEN_IVF (IVFIndex.build at the row's centroids,
+    hierarchical, 10 iterations; recall@10 per n_probes) and
+    GOLDEN_INVERTED (InvertedIndex.build at its defaults; per
+    refinement_epsilon at the file's max_probes) built and searched on the
+    card as benchmark/runner.py builds them; rows outside GOLDEN_IVF_TOL /
+    GOLDEN_INVERTED_TOL go to ``bad``.  The inverted builds and searches
+    must launch beam_step."""
+    import scalablevectorsearch_tpu_torch as svt
+    for path, tol in ((GOLDEN_IVF, GOLDEN_IVF_TOL),
+                      (GOLDEN_INVERTED, GOLDEN_INVERTED_TOL)):
+        with open(path) as f:
+            golden = json.load(f)
+        spec, k = golden["dataset"], golden["num_neighbors"]
+        data, queries = svt.generate_test_dataset(
+            spec["n"], spec["n_queries"], spec["dim"], seed=spec["seed"])
+        for entry in golden["expected"]:
+            distance = entry["distance"]
+            before = read_counts()
+            t0 = time.perf_counter()
+            if path == GOLDEN_IVF:
+                bp = entry["build_parameters"]
+                index = svt.IVF.build(svt.IVFBuildParameters(
+                    num_centroids=bp["num_centroids"],
+                    is_hierarchical=bp["is_hierarchical"],
+                    num_iterations=10), data, distance).index
+
+                def params(key):
+                    return svt.IVFSearchParameters(n_probes=int(key))
+            else:
+                index = svt.Inverted.build(svt.InvertedBuildParameters(),
+                                           data, distance).index
+
+                def params(key):
+                    return svt.InvertedSearchParameters(
+                        refinement_epsilon=float(key),
+                        max_probes=golden["max_probes"])
+            build_s = time.perf_counter() - t0
+            truth = svt.exhaustive_search(data, queries, k, distance)
+            got = {key: svt.k_recall_at_n(truth, index.search(
+                queries, k, params(key))) for key in entry["recalls"]}
+            ungated = [key for key in got if path == GOLDEN_IVF
+                       and (distance, key) in GOLDEN_IVF_UNGATED]
+            for key, want in entry["recalls"].items():
+                if abs(got[key] - want) > tol and key not in ungated:
+                    bad.append(f"{os.path.basename(path)} {distance} {key} "
+                               f"{got[key]:.4f} vs {want}")
+            launched = {name: n for name, n in launched_since(before).items()
+                        if n}
+            if path == GOLDEN_INVERTED and not launched.get("beam_step"):
+                bad.append(f"inverted {distance}: beam_step not launched")
+            log(f"golden: {os.path.basename(path)} {distance} build "
+                f"{build_s:.2f} s, recall "
+                + " ".join(f"{key}:{r:.4f}(ref {entry['recalls'][key]})"
+                           for key, r in got.items())
+                + (f"; not gated: {ungated}" if ungated else "")
+                + f"; launches {launched}")
 
 
 def bound_of(bytes_moved: int, flops: int) -> dict:
@@ -1839,37 +1959,20 @@ def phase_dynamic(main_path: dict) -> dict:
 def dynamic_flat_check(flat, queries, ref, sample: int = 256) -> None:
     """DynamicFlat after the same mutations: recall@10 >= 0.999 against
     the exact search over the live set, and every miss a tie of the 10th
-    distance; for the first ``sample`` queries, every returned distance
-    equal to the float64 distance of its row on the host.  Distances are
-    f32 norm algebra, whose rounding is a few ulps of ||q||^2 + ||x||^2, so
-    both checks allow 8 f32 epsilons of that sum."""
+    distance (:func:`misses_are_ties`); for the first ``sample`` queries,
+    every returned distance equal to the float64 distance of its row on
+    the host (:func:`host_distances`)."""
     import scalablevectorsearch_tpu_torch as svt
     res = flat.search(queries, 10)
     ref.check_ids(res)
     gt = ref.groundtruth(queries, 10)
     recall = svt.k_recall_at_n(gt, res)
-    eps = 8 * np.finfo(np.float32).eps
 
-    def host_dist(qi, ids):
-        """float64 distances of query qi to the rows of external ids, and
-        the rounding allowed to each."""
-        q = queries[qi].astype(np.float64)
-        x = ref.pool[[ref.live[int(e)] for e in ids]].astype(np.float64)
-        return ((x - q) ** 2).sum(1), eps * ((x ** 2).sum(1) + q @ q)
+    def rows_of(ids):
+        return ref.pool[[ref.live[int(e)] for e in ids]]
 
-    for qi in range(min(sample, len(queries))):
-        want, tol = host_dist(qi, res.ids[qi])
-        if np.any(np.abs(res.distances[qi] - want) > tol):
-            raise AssertionError(f"dynamic flat: query {qi} returns "
-                                 f"distances {res.distances[qi]}, the host "
-                                 f"gives {want}")
-    for qi in np.nonzero((np.sort(gt, 1) != np.sort(res.ids, 1)).any(1))[0]:
-        missed, _ = host_dist(qi, np.setdiff1d(gt[qi], res.ids[qi]))
-        kth = float(res.distances[qi, 9])
-        _, tol = host_dist(qi, res.ids[qi, 9:10])
-        if np.any(np.abs(missed - kth) > tol[0]):
-            raise AssertionError(f"dynamic flat: query {qi} misses rows at "
-                                 f"{missed}, not ties of the 10th {kth}")
+    host_distances(res, queries, rows_of, "dynamic flat", sample)
+    misses_are_ties(res, gt, queries, rows_of, "dynamic flat")
     log(f"dynamic: DynamicFlat over the {flat.size} live rows: recall@10 "
         f"{recall:.6f}; distances of {min(sample, len(queries))} queries "
         f"equal the host's float64 ones within f32 rounding")
@@ -2278,6 +2381,415 @@ def phase_leanvec(main_path: dict) -> dict:
     return out
 
 
+IVF_PROBES = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128)
+IVF_BATCH = 2500               # bench.py's IVF query batch
+INVERTED_SETTINGS = tuple((probes, eps) for probes in (16, 32)
+                          for eps in (0.0, 0.25, 1.0, 2.0))
+
+
+def ivf_params(n: int, hierarchical: bool = False):
+    """bench.py's IVF configuration: 3 sqrt(n) centroids, 10 iterations,
+    every row trained on."""
+    import scalablevectorsearch_tpu_torch as svt
+    return svt.IVFBuildParameters(num_centroids=int(np.sqrt(n) * 3),
+                                  num_iterations=10, training_fraction=1.0,
+                                  is_hierarchical=hierarchical)
+
+
+def probe_sweep(index, queries, gt, label: str, check=None,
+                k_reorder: int = 1):
+    """First n_probes of IVF_PROBES with recall@10 >= 0.9 against ``gt``
+    (ids); fails if none.  ``check(result)`` runs on every result."""
+    import scalablevectorsearch_tpu_torch as svt
+    steps = []
+    for probes in IVF_PROBES:
+        res = index.search(queries, 10, svt.IVFSearchParameters(
+            n_probes=probes, k_reorder=k_reorder))
+        if check is not None:
+            check(res)
+        recall = svt.k_recall_at_n(gt, res)
+        steps.append(f"{probes}:{recall:.4f}")
+        if recall >= 0.9:
+            log(f"{label}: recall@10 probe sweep " + " ".join(steps))
+            return probes, recall
+        if probes >= index.num_probe_units:
+            break
+    raise AssertionError(f"{label}: no n_probes reached recall@10 >= 0.9 "
+                         f"({' '.join(steps)})")
+
+
+def median_qps(search, nq: int) -> float:
+    """Queries per second of the median of 5 ``search()`` calls (host
+    clock, noisy)."""
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        search()
+        times.append(time.perf_counter() - t0)
+    return nq / statistics.median(times)
+
+
+def host_distances(res, queries, rows_of, label: str, sample: int = 256
+                   ) -> None:
+    """The first ``sample`` queries' returned distances against float64 L2
+    distances of their rows on the host (``rows_of(ids)`` -> rows); the
+    norm algebra's rounding is a few ulps of ||q||^2 + ||x||^2, so 8 f32
+    epsilons of that sum are allowed."""
+    eps = 8 * np.finfo(np.float32).eps
+    for qi in range(min(sample, len(queries))):
+        ids = res.ids[qi][res.ids[qi] >= 0]
+        x = rows_of(ids).astype(np.float64)
+        q = queries[qi].astype(np.float64)
+        want = ((x - q) ** 2).sum(1)
+        tol = eps * ((x ** 2).sum(1) + q @ q)
+        if np.any(np.abs(res.distances[qi][: ids.size] - want) > tol):
+            raise AssertionError(f"{label}: query {qi} returns distances "
+                                 f"{res.distances[qi]}, the host gives "
+                                 f"{want}")
+
+
+def misses_are_ties(res, gt_ids, queries, rows_of, label: str) -> int:
+    """Every id of the exact top-10 that ``res`` misses lies at the 10th
+    returned distance (float64 on the host, within 8 f32 epsilons of
+    ||q||^2 + ||x||^2); returns the count of such tied misses."""
+    eps = 8 * np.finfo(np.float32).eps
+    ties = 0
+    for qi in np.nonzero((np.sort(gt_ids, 1)
+                          != np.sort(res.ids, 1)).any(1))[0]:
+        q = queries[qi].astype(np.float64)
+        missed = rows_of(np.setdiff1d(gt_ids[qi], res.ids[qi]))
+        tenth = rows_of(res.ids[qi, 9:10]).astype(np.float64)
+        d_missed = ((missed.astype(np.float64) - q) ** 2).sum(1)
+        d_tenth = float(((tenth - q) ** 2).sum())
+        tol = eps * (float((tenth ** 2).sum()) + q @ q)
+        if np.any(np.abs(d_missed - d_tenth) > tol):
+            raise AssertionError(f"{label}: query {qi} misses rows at "
+                                 f"{d_missed}, not ties of the 10th "
+                                 f"{d_tenth}")
+        ties += missed.shape[0]
+    return ties
+
+
+def ties_only(got, want, queries, rows_of, label: str) -> int:
+    """Rows where ``got`` and ``want`` (searches with f32 uploads) return
+    other ids must hold the same float64 L2 distances on the host, sorted,
+    within 8 f32 epsilons of ||q||^2 + ||x||^2: near-ties whose order the
+    rounding decides.  Returns the count of such rows."""
+    eps = 8 * np.finfo(np.float32).eps
+    rows = np.nonzero((got.ids != want.ids).any(1))[0]
+    for qi in rows:
+        q = queries[qi].astype(np.float64)
+        dists = []
+        for ids in (got.ids[qi], want.ids[qi]):
+            x = rows_of(ids[ids >= 0]).astype(np.float64)
+            dists.append((np.sort(((x - q) ** 2).sum(1)),
+                          eps * ((x ** 2).sum(1).max() + q @ q)))
+        (a, tol), (b, _) = dists
+        if a.shape != b.shape or np.any(np.abs(a - b) > tol):
+            raise AssertionError(f"{label}: query {qi} returns {a}, the "
+                                 f"other search {b}: not ties")
+    return rows.size
+
+
+def phase_ivf(main_path: dict) -> dict:
+    """IVF on the card over the main path's data, queries and exact ground
+    truth (bench.py's configuration, no cut): training seconds and a
+    second training with the same seed (identical centroids and
+    assignments); the layout's slot and padding; the probe sweep to
+    recall@10 >= 0.9 and QPS there; a full probe against the exhaustive
+    search (only ties of the 10th distance missed; 256 queries' distances
+    against float64 on the host); the row-gather scan route against the
+    super-row one (identical ids but at near-ties, each proven on the
+    host); a hierarchical training and its sweep;
+    LVQ-8 postings with the k_reorder 3 rerank, swept; save /
+    assemble_from_file (identical search) and save_packed_layout_host
+    (bf16 rows; recall reported); IVFBatchIterator; DynamicIVF over 80,000
+    rows through two cycles of 5,000 adds and 5,000 deletes and a compact,
+    swept after every step.  No kernel of the repo is on this path (the
+    posting scan is PyTorch code, as it is XLA code in the JAX package);
+    the counts stay 0 and are returned."""
+    import scalablevectorsearch_tpu_torch as svt
+    from scalablevectorsearch_tpu_torch.index.ivf.index import (
+        save_packed_layout_host)
+    data, queries, gt = (main_path[key] for key in ("data", "queries", "gt"))
+    n = data.shape[0]
+    zero_counts()
+    bp = ivf_params(n)
+    t0 = time.perf_counter()
+    clustering = svt.Clustering.build(bp, data)
+    train_s = time.perf_counter() - t0
+    again = svt.Clustering.build(bp, data)
+    same = np.array_equal(again.centroids, clustering.centroids) and \
+        np.array_equal(again.assignments, clustering.assignments)
+    sizes = clustering.cluster_sizes()
+    log(f"ivf: train {bp.num_centroids} centroids (minibatch, 10 "
+        f"iterations, all {n} rows) in {train_s:.2f} s; a second training "
+        f"with the seed gives identical centroids and assignments: {same}; "
+        f"cluster sizes {sizes.min()}-{sizes.max()} (empty "
+        f"{int((sizes == 0).sum())})")
+    if not same:
+        raise AssertionError("ivf: two trainings with one seed differ")
+    t0 = time.perf_counter()
+    ivf = svt.IVF.assemble_from_clustering(clustering, data, "l2",
+                                           query_batch_size=IVF_BATCH)
+    sync()
+    index = ivf.index
+    total = index.ids_padded.shape[0]
+    log(f"ivf: assemble in {time.perf_counter() - t0:.2f} s: slot "
+        f"{index.slot}, {index.num_probe_units} probe units, padding factor "
+        f"{total / n:.3f} ({total} rows, "
+        f"{index.data.vectors.numel() * index.data.vectors.element_size()} "
+        f"bytes on the card)")
+    gt_ids = gt.ids
+    probes, recall = probe_sweep(index, queries, gt_ids, "ivf")
+    ivf.n_probes = probes
+    qps = median_qps(lambda: ivf.search_async(queries, 10).result(),
+                     len(queries))
+    log(f"ivf: n_probes {probes} recall@10 {recall:.4f}; search_async x5 "
+        f"median -> {qps:.1f} QPS (host clock, noisy)")
+
+    # exactness checks upload f32 queries (the default float16 upload
+    # rounds each distance by ~1e-5 relative)
+    index.query_upload_dtype = "float32"
+    t0 = time.perf_counter()
+    full = index.search(queries, 10, svt.IVFSearchParameters(
+        n_probes=index.num_probe_units))
+    full_s = time.perf_counter() - t0
+    index.query_upload_dtype = None
+    ties = misses_are_ties(full, gt_ids, queries, lambda ids: data[ids],
+                           "ivf full probe")
+    host_distances(full, queries, lambda ids: data[ids], "ivf full probe")
+    log(f"ivf: full probe ({index.num_probe_units} units, f32 query "
+        f"uploads) in {full_s:.2f} s: recall@10 {svt.k_recall_at_n(gt, full):.6f}, {ties} misses, "
+        f"each a tie of the 10th distance; 256 queries' distances equal the "
+        f"host's float64 ones within f32 rounding")
+
+    # the two scan routes round the norm algebra in other orders (norms
+    # recomputed from the gathered super-rows or read from the cache; the
+    # contraction over slot or sub rows), so ids may differ at near-ties
+    sp = svt.IVFSearchParameters(n_probes=probes)
+    default = index.search(queries, 10, sp)
+    index.query_upload_dtype = "float32"
+    f32 = index.search(queries, 10, sp)
+    os.environ["SVT_IVF_SCAN_LAYOUT"] = "0"
+    try:
+        index._scan_vecs = index._scan_ids = None
+        index._scan_sub = 0
+        rows_route = index.search(queries, 10, sp)
+        routed = index._scan_vecs is None
+    finally:
+        del os.environ["SVT_IVF_SCAN_LAYOUT"]
+        index.query_upload_dtype = None
+    if not routed:
+        raise AssertionError("ivf: SVT_IVF_SCAN_LAYOUT=0 kept the super-row "
+                             "route")
+    ties = ties_only(rows_route, f32, queries, lambda ids: data[ids],
+                     "ivf scan routes")
+    log(f"ivf: row-gather route (SVT_IVF_SCAN_LAYOUT=0) against the "
+        f"super-row route at n_probes {probes} (f32 uploads): {ties} of "
+        f"{len(queries)} rows order near-ties otherwise, each proven on the "
+        f"host; distances max abs diff "
+        f"{float(np.max(np.abs(rows_route.distances - f32.distances))):.3g}")
+
+    t0 = time.perf_counter()
+    hier = svt.IVF.build(ivf_params(n, hierarchical=True), data, "l2",
+                         query_batch_size=IVF_BATCH)
+    sync()
+    log(f"ivf: hierarchical training + assemble in "
+        f"{time.perf_counter() - t0:.2f} s (slot {hier.index.slot})")
+    probe_sweep(hier.index, queries, gt_ids, "ivf hierarchical")
+    del hier
+
+    lvq = svt.IVF.assemble_from_clustering(
+        clustering, data, "l2", dataset_cls=svt.LVQDataset, rerank=True,
+        query_batch_size=IVF_BATCH)
+    lvq_probes, _ = probe_sweep(lvq.index, queries, gt_ids,
+                                "ivf LVQ-8 postings, rerank k_reorder 3",
+                                k_reorder=3)
+    del lvq
+
+    def assemble(tmp):
+        return svt.IVF.assemble_from_file(tmp, query_batch_size=IVF_BATCH)
+
+    loaded = round_trip("save / assemble_from_file", ivf.save, assemble,
+                        path="ivf")
+    got = loaded.index.search(queries, 10, sp)
+    if not (np.array_equal(got.ids, default.ids)
+            and np.array_equal(got.distances, default.distances)):
+        raise AssertionError("ivf: the assembled index searches otherwise")
+    del loaded
+
+    def host_packed(tmp):
+        save_packed_layout_host(tmp, clustering, data, "l2")
+
+    bf16 = round_trip("save_packed_layout_host (bf16 rows) / "
+                      "assemble_from_file", host_packed, assemble,
+                      path="ivf").index
+    if bf16.data.dtype != torch.bfloat16:
+        raise AssertionError("ivf: the host-packed copy is not bf16")
+    log(f"ivf: round trip searched identically; the bf16 copy's recall@10 "
+        f"at n_probes {probes}: "
+        f"{svt.k_recall_at_n(gt, bf16.search(queries, 10, sp)):.4f}")
+    del bf16
+    phase_ivf_iterator(index, data, queries)
+    phase_dynamic_ivf(data, queries)
+    counts = read_counts()
+    log(f"ivf: kernel launches {counts} (LVQ postings took n_probes "
+        f"{lvq_probes})")
+    return {name: count for name, count in counts.items() if count}
+
+
+def phase_ivf_iterator(index, data, queries) -> None:
+    """IVFBatchIterator: ITER_QUERIES queries x ITER_PAGES pages of 10;
+    pages disjoint, no -1 before exhaustion, restart repeats page one;
+    the exact top-100's coverage reported."""
+    import scalablevectorsearch_tpu_torch as svt
+    nq = ITER_QUERIES
+    gt100 = svt.exhaustive_search(data, queries[:nq], 100).ids
+    cover = 0
+    t0 = time.perf_counter()
+    for qi in range(nq):
+        it = svt.IVFBatchIterator(index, queries[qi], batch_size=10)
+        pages = [it.next() for _ in range(ITER_PAGES)]
+        ids = np.concatenate([p.ids[0] for p in pages])
+        if np.any(ids < 0) or len(np.unique(ids)) != ids.size or it.done():
+            raise AssertionError(f"ivf iterator: query {qi}: pages overlap "
+                                 f"or run short")
+        cover += len(set(ids.tolist()) & set(gt100[qi].tolist()))
+        it.restart()
+        if not np.array_equal(it.next().ids, pages[0].ids):
+            raise AssertionError(f"ivf iterator: query {qi}: restart gives "
+                                 f"another first page")
+    log(f"ivf iterator: {nq} queries x {ITER_PAGES} pages of 10 (+ a "
+        f"restart each) in {time.perf_counter() - t0:.2f} s: pages disjoint, "
+        f"none short; the ten pages cover {cover / (100 * nq):.4f} of the "
+        f"exact top-100")
+
+
+def phase_dynamic_ivf(data, queries) -> None:
+    """DynamicIVF over DYN_ROWS rows (ReferenceDataset seed 0, as the
+    dynamic path): two cycles of DYN_BATCH adds and deletes, then compact;
+    after every step the probe sweep to recall@10 >= 0.9 against the exact
+    search over the live set, with no deleted or unknown id."""
+    import scalablevectorsearch_tpu_torch as svt
+    ref = svt.ReferenceDataset(data, seed=0)
+    pts, ids = ref.new_batch(DYN_ROWS)
+    t0 = time.perf_counter()
+    div = svt.DynamicIVF.build(ivf_params(DYN_ROWS), pts, ids, "l2",
+                               query_batch_size=IVF_BATCH)
+    sync()
+    index = div.index
+    log(f"dynamic ivf: build {DYN_ROWS} rows, {index.num_centroids} "
+        f"centroids, in {time.perf_counter() - t0:.2f} s (slot {index.slot})")
+
+    def step(label, fn) -> None:
+        units = index.num_probe_units
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        secs = time.perf_counter() - t0
+        probes, recall = probe_sweep(
+            index, queries, ref.groundtruth(queries, 10),
+            f"dynamic ivf: {label}", check=ref.check_ids)
+        log(f"dynamic ivf: {label} in {secs:.3f} s; probe units {units} -> "
+            f"{index.num_probe_units}, size {div.size}; n_probes {probes} "
+            f"recall@10 {recall:.4f}")
+
+    step("build", lambda: None)
+    for cycle in (1, 2):
+        pts, ids = ref.new_batch(DYN_BATCH)
+        step(f"cycle {cycle} add_points {DYN_BATCH}",
+             lambda: div.add_points(pts, ids))
+        dead = ref.delete_batch(DYN_BATCH)
+        step(f"cycle {cycle} delete_points {DYN_BATCH}",
+             lambda: div.delete_points(dead))
+    step("compact", div.compact)
+    if div.size != len(ref.live):
+        raise AssertionError("dynamic ivf: size differs from the live set")
+
+
+def phase_inverted(main_path: dict) -> dict:
+    """The inverted index at its defaults (10% of the rows as centroids,
+    the default Vamana primary, closure epsilon 0.05 and 8 replicas) over
+    the main path's data: the build split into the primary graph, closure
+    assignment and packing; slot, padding, replicas and the layout's bytes;
+    the sweep over max_probes 16, 32 x refinement_epsilon 0, 0.25, 1, 2
+    to recall@10 >= 0.9 and QPS there; 256 queries' distances against
+    float64 on the host; a save / assemble round trip searched
+    identically.  beam_step must launch in the build and in every search.
+    Returns the phase's launches."""
+    import scalablevectorsearch_tpu_torch as svt
+    from scalablevectorsearch_tpu_torch.lib.timing import Timer
+    from scalablevectorsearch_tpu_torch.ops.kernels.beam_step import (
+        beam_step)
+    data, queries, gt = (main_path[key] for key in ("data", "queries", "gt"))
+    n = data.shape[0]
+    zero_counts()
+    timer = Timer()
+    t0 = time.perf_counter()
+    inv = svt.Inverted.build(svt.InvertedBuildParameters(), data, "l2",
+                             timer=timer)
+    sync()
+    build_s = time.perf_counter() - t0
+    index = inv.index
+    split = {name: node.total_s for name, node in
+             timer.root.children.items()}
+    ids_padded = index.ids_padded.cpu().numpy()
+    total = ids_padded.shape[0]
+    live = int((ids_padded >= 0).sum())
+    build_launches = beam_step.launches
+    log(f"inverted: build {n} rows, {index.num_centroids} centroids in "
+        f"{build_s:.2f} s (" + ", ".join(f"{k} {v:.2f} s"
+                                         for k, v in split.items())
+        + f"), beam_step launches {build_launches}; slot {index.slot}, "
+        f"padding factor {total / n:.3f} ({total} rows), mean replicas per "
+        f"point {live / n:.3f}, layout "
+        f"{index.data.vectors.numel() * index.data.vectors.element_size()} "
+        f"bytes on the card")
+    if build_launches == 0:
+        raise AssertionError("inverted: beam_step not launched in the build")
+    steps, win = [], None
+    for probes, eps in INVERTED_SETTINGS:
+        sp = svt.InvertedSearchParameters(refinement_epsilon=eps,
+                                          max_probes=probes)
+        before = beam_step.launches
+        res = index.search(queries, 10, sp)
+        if beam_step.launches == before:
+            raise AssertionError(f"inverted: beam_step not launched in the "
+                                 f"search at {probes}, {eps}")
+        recall = svt.k_recall_at_n(gt, res)
+        steps.append(f"{probes}/{eps}:{recall:.4f}")
+        if recall >= 0.9:
+            win = sp, recall, res
+            break
+    log("inverted: recall@10 sweep (max_probes/epsilon) " + " ".join(steps))
+    if win is None:
+        raise AssertionError("inverted: no setting reached recall@10 >= 0.9")
+    sp, recall, res = win
+    inv.search_parameters = sp
+    qps = median_qps(lambda: inv.search_async(queries, 10).result(),
+                     len(queries))
+    index.query_upload_dtype = "float32"     # see phase_ivf's full probe
+    host_distances(index.search(queries, 10, sp), queries,
+                   lambda ids: data[ids], "inverted")
+    index.query_upload_dtype = None
+    log(f"inverted: max_probes {sp.max_probes} epsilon "
+        f"{sp.refinement_epsilon} recall@10 {recall:.4f}; search_async x5 "
+        f"median -> {qps:.1f} QPS (host clock, noisy); 256 queries' "
+        f"distances (f32 uploads) equal the host's float64 ones within f32 "
+        f"rounding")
+    loaded = round_trip("save / assemble", inv.save, svt.Inverted.assemble,
+                        path="inverted")
+    got = loaded.search(queries, 10)
+    if not (np.array_equal(got.ids, res.ids)
+            and np.array_equal(got.distances, res.distances)):
+        raise AssertionError("inverted: the assembled index searches "
+                             "otherwise")
+    log(f"inverted: the assembled copy searches identically; beam_step "
+        f"launches {beam_step.launches}")
+    return {"beam_step": beam_step.launches}
+
+
 def kernel_entry(name: str, replaces: str, by_path: dict, kern: dict,
                  shape: str, build_s: float,
                  source: str = "beam_step.cu") -> dict:
@@ -2344,6 +2856,10 @@ def main(argv: list) -> int:
     with step_shapes() as seen:
         by_path["leanvec"] = phase_leanvec(main_path)["launches"]
     check_step_shapes("leanvec", seen)
+    by_path["ivf"] = phase_ivf(main_path)
+    with step_shapes() as seen:
+        by_path["inverted"] = phase_inverted(main_path)
+    check_step_shapes("inverted", seen)
     del main_path                       # frees the 100k index
     phase_golden()
     log(f"paths: {time.perf_counter() - t0:.1f} s from the main path's "

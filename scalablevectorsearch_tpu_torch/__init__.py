@@ -8,7 +8,11 @@ with a full-dimension rerank); paged retrieval (``BatchIterator``) and
 search-parameter calibration (``calibrate``); the dynamic indexes
 (``MutableVamanaIndex`` / ``DynamicVamana``: add, soft delete, consolidate,
 compact; ``DynamicFlatIndex`` / ``DynamicFlat``; the multi-vector
-``MultiMutableVamanaIndex``); flat exhaustive search for ground truth,
+``MultiMutableVamanaIndex``); IVF (``Clustering`` / ``IVF``: minibatch and
+hierarchical k-means, the padded posting scan; ``DynamicIVF``;
+``IVFBatchIterator``) and the two-level inverted index (``Inverted``: a
+Vamana graph over a centroid subset, then the posting scan); flat
+exhaustive search for ground truth,
 recall, and checkpoints in the JAX package's format (a
 checkpoint either package saves loads in the other), in PyTorch on one
 NVIDIA H100.  The
@@ -31,6 +35,11 @@ from .core.recall import k_recall_at_n
 from .core.translation import IDTranslator
 from .index.dynamic_flat import DynamicFlatIndex
 from .index.flat import FlatIndex, exhaustive_search
+from .index.inverted.index import (InvertedBuildParameters,
+                                   InvertedSearchParameters)
+from .index.ivf.dynamic import DynamicIVF
+from .index.ivf.iterator import IVFBatchIterator
+from .index.ivf.params import IVFBuildParameters, IVFSearchParameters
 from .index.vamana.calibrate import CalibrationParameters, calibrate
 from .index.vamana.dynamic import MutableVamanaIndex
 from .index.vamana.index import VamanaIndex
@@ -42,6 +51,8 @@ from .index.vamana.params import (SearchBufferConfig, VamanaBuildParameters,
 from .ops.distance import DistanceType, as_distance
 from .orchestrators.dynamic_vamana import DynamicFlat, DynamicVamana
 from .orchestrators.flat import Flat
+from .orchestrators.inverted import Inverted
+from .orchestrators.ivf import IVF, Clustering
 from .orchestrators.vamana import Vamana
 from .quantization.leanvec import LeanVecDataset, LeanVecVamana
 from .quantization.lvq import LVQDataset
@@ -64,4 +75,7 @@ __all__ = [
     "DynamicFlat", "DynamicFlatIndex", "IDTranslator", "ReferenceDataset",
     "LeanVecDataset", "LeanVecVamana", "BatchIterator", "DefaultSchedule",
     "LinearSchedule", "CalibrationParameters", "calibrate",
+    "IVFBuildParameters", "IVFSearchParameters", "IVF", "Clustering",
+    "DynamicIVF", "IVFBatchIterator", "Inverted", "InvertedBuildParameters",
+    "InvertedSearchParameters",
 ]

@@ -27,6 +27,18 @@ A JAX ``LeanVecDataset`` carries across through :func:`leanvec_from_arrays`
 its ``primary`` and ``secondary`` as :func:`lvq_from_arrays` arguments); a
 ``LeanVecVamana`` is then ``LeanVecVamana(vamana_from_arrays(primary, ...),
 leanvec)``.
+
+The IVF family carries across the same way.  A JAX ``IVFIndex`` through
+:func:`ivf_from_arrays`: its ``centroids`` (one row per probe unit), the
+reordered rows ``np.asarray(idx.data.vectors)[:total, :dim]`` (or an LVQ /
+SQ dataset over them), ``ids_padded``, ``slot``, ``n`` and ``n_clusters``.
+A JAX ``DynamicIVFIndex`` through :func:`dynamic_ivf_from_arrays`: its
+``_base_centroids``, the rows of every slot, ``ids_padded``, ``slot``,
+``unit_owner``, ``_fill``, ``_occupied`` and the external ids of the
+occupied slots.  A JAX ``InvertedIndex`` through
+:func:`inverted_from_arrays`: the centroid rows and ``centroid_ids``, the
+primary graph's adjacency, degrees and entry point, and the posting layout
+(rows, ``ids_padded``, ``slot``, ``n``).
 """
 
 from __future__ import annotations
@@ -38,6 +50,10 @@ import torch
 
 from .core.data import VectorDataset
 from .core.graph import NeighborGraph
+from .core.translation import IDTranslator
+from .index.inverted.index import InvertedIndex
+from .index.ivf.dynamic import DynamicIVFIndex
+from .index.ivf.index import IVFIndex, _poison_padding
 from .index.vamana.dynamic import MutableVamanaIndex
 from .index.vamana.entry import build_sampler
 from .index.vamana.index import VamanaIndex
@@ -163,3 +179,59 @@ def dynamic_vamana_from_arrays(vectors, adjacency, degrees, status,
     if sampler_cfg is not None:
         index.enable_entry_sampler(*sampler_cfg)
     return index
+
+
+def ivf_from_arrays(centroids, rows, ids_padded, slot: int, n: int,
+                    n_clusters: int, distance, *, dtype=None,
+                    rerank_rows=None, device="cuda") -> IVFIndex:
+    """A port :class:`IVFIndex` over a JAX ``IVFIndex``'s layout:
+    ``centroids`` (units, d or d_pad), the reordered ``rows`` (total, dim)
+    (stored as ``dtype``), or an :class:`LVQDataset` / :class:`SQDataset`
+    over them, ``ids_padded`` (total,), ``slot``, ``n`` and ``n_clusters``.
+    ``rerank_rows``: the (n, dim) f32 rows of the k_reorder pass."""
+    if isinstance(rows, (LVQDataset, SQDataset)):
+        data = rows
+    else:
+        data = dataset_from_array(rows, dtype=dtype, device=device)
+    ids_padded = np.asarray(ids_padded, dtype=np.int32)
+    rerank_data = None if rerank_rows is None else dataset_from_array(
+        np.asarray(rerank_rows, np.float32), device=device)
+    return IVFIndex(centroids, _poison_padding(data, ids_padded), ids_padded,
+                    slot, n, distance, rerank_data=rerank_data,
+                    n_clusters=n_clusters)
+
+
+def dynamic_ivf_from_arrays(base_centroids, vectors, ids_padded, slot: int,
+                            unit_owner, fill, occupied, external_ids,
+                            distance, *, device="cuda") -> DynamicIVFIndex:
+    """A port :class:`DynamicIVFIndex` over a JAX ``DynamicIVFIndex``'s
+    state: the (k, d) logical centroids, the (total, dim) rows of every
+    slot (free slots' rows are ignored), ``ids_padded``, ``slot``, the
+    probe units' owners, their fill, the occupied mask and the external
+    ids of the occupied slots in slot order."""
+    occupied = np.asarray(occupied, dtype=bool)
+    live = np.flatnonzero(occupied)
+    translator = IDTranslator(occupied.size)
+    translator.insert(np.asarray(external_ids, dtype=np.int64), live)
+    return DynamicIVFIndex.from_state(
+        base_centroids, vectors, ids_padded, slot, unit_owner, fill,
+        occupied, translator, distance, device=device)
+
+
+def inverted_from_arrays(centroid_rows, centroid_ids, adjacency, degrees,
+                         entry_point: int, rows, ids_padded, slot: int,
+                         n: int, distance, *, device="cuda"
+                         ) -> InvertedIndex:
+    """A port :class:`InvertedIndex` over a JAX ``InvertedIndex``'s state:
+    the (k, dim) centroid rows and their dataset ids, the primary graph's
+    (capacity, R) adjacency, degrees and entry point, and the posting
+    layout's (total, dim) rows, ``ids_padded``, ``slot`` and ``n``."""
+    centroid_data = dataset_from_array(
+        np.asarray(centroid_rows, np.float32), device=device)
+    graph = graph_from_arrays(adjacency, degrees, centroid_data.n,
+                              device=device)
+    ids_padded = np.asarray(ids_padded, dtype=np.int32)
+    data = _poison_padding(dataset_from_array(
+        np.asarray(rows, np.float32), device=device), ids_padded)
+    return InvertedIndex(graph, centroid_data, centroid_ids, data,
+                         ids_padded, slot, n, entry_point, distance)

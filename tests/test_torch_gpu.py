@@ -690,3 +690,91 @@ def test_leanvec_search_on_gpu_matches_cpu(cuda, tmp_path):
         data, queries=queries[100:], device="cuda"), "l2")
     assert bs.beam_step_lvq.launches > before
     assert built.index.graph.adjacency.device.type == "cuda"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", ["inverted serving", "inverted build"])
+def test_kernel_matches_plain_at_inverted_shapes(cuda, label):
+    """beam_step at the inverted index's shapes (its primary search over
+    10,000 centroids at window 32, its build rounds at pop width 1): on
+    exact (grid) inputs all five outputs equal beam_step_plain's, f32
+    rows and queries as the index gives them."""
+    shape = dict(chip_smoke.UNTIMED_STEP_SHAPES)[label]
+    _b, _c, _k, _d, window, m = shape
+    rng = np.random.default_rng(sum(shape))
+    for metric in (0, 1, 2):
+        args = chip_smoke.make_case(rng, shape, grid=True)
+        got = bs.beam_step(*args, metric=metric, window=window, m=m)
+        want = bs.beam_step_plain(*args, metric=metric, window=window, m=m)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("keys", "packed", "popped", "pool_keys",
+                               "pool_ids"), got, want):
+            assert torch.equal(g, w), (metric, name)
+
+
+@pytest.mark.gpu
+def test_ivf_family_on_gpu_matches_cpu(cuda, monkeypatch, tmp_path):
+    """IVF (both scan routes), DynamicIVF through add / delete / compact,
+    and the inverted index over integer-valued rows, where every distance
+    is exact in f32 on both devices: from one clustering (one CPU build
+    for the inverted index, assembled onto the card) the card's searches
+    give the CPU's ids and distances exactly; the inverted searches and a
+    build on the card launch beam_step."""
+    data, queries = svt.generate_test_dataset(3000, 200, 48, seed=9)
+    data, queries = np.round(data), np.round(queries)
+    monkeypatch.setenv("SVT_QUERY_UPLOAD_DTYPE", "float32")
+
+    def same(got, want, label):
+        np.testing.assert_array_equal(got.ids, want.ids, err_msg=label)
+        np.testing.assert_array_equal(got.distances, want.distances,
+                                      err_msg=label)
+
+    bp = svt.IVFBuildParameters(num_centroids=48, num_iterations=4,
+                                training_fraction=1.0,
+                                is_hierarchical=False)
+    clustering = svt.Clustering.build(bp, data, device="cpu")
+    sp = svt.IVFSearchParameters(n_probes=6)
+    ivf = {dev: svt.IVF.assemble_from_clustering(
+        clustering, data, "l2", device=dev).index for dev in ("cpu", "cuda")}
+    want = ivf["cpu"].search(queries, 10, sp)
+    same(ivf["cuda"].search(queries, 10, sp), want, "ivf")
+    monkeypatch.setenv("SVT_IVF_SCAN_LAYOUT", "0")
+    rows_route = svt.IVF.assemble_from_clustering(
+        clustering, data, "l2", device="cuda").index
+    same(rows_route.search(queries, 10, sp), want, "ivf row-gather route")
+    assert rows_route._scan_vecs is None
+    monkeypatch.delenv("SVT_IVF_SCAN_LAYOUT")
+
+    from scalablevectorsearch_tpu_torch.index.ivf.dynamic import (
+        DynamicIVFIndex)
+    dyn = {dev: DynamicIVFIndex(clustering, data, np.arange(3000), "l2",
+                                slot_slack=1.0, device=dev)
+           for dev in ("cpu", "cuda")}
+    extra = np.round(svt.generate_test_dataset(400, 1, 48, seed=10)[0])
+    for name, step in (("add", lambda i: i.add_points(
+                           extra, np.arange(5000, 5400))),
+                       ("delete", lambda i: i.delete_points(
+                           np.arange(0, 3000, 4))),
+                       ("compact", lambda i: i.compact())):
+        for index in dyn.values():
+            step(index)
+        assert dyn["cuda"].num_probe_units == dyn["cpu"].num_probe_units
+        same(dyn["cuda"].search(queries, 10, sp),
+             dyn["cpu"].search(queries, 10, sp), f"dynamic ivf {name}")
+
+    params = svt.InvertedBuildParameters(
+        primary_parameters=svt.VamanaBuildParameters(
+            graph_max_degree=16, window_size=32, max_candidate_pool_size=64,
+            prune_to=14))
+    cpu = svt.Inverted.build(params, data, "l2", device="cpu")
+    cpu.save(str(tmp_path / "inverted"))
+    card = svt.Inverted.assemble(str(tmp_path / "inverted"), device="cuda")
+    isp = svt.InvertedSearchParameters(max_probes=8)
+    before = bs.beam_step.launches
+    got = card.index.search(queries, 10, isp)
+    assert bs.beam_step.launches > before
+    same(got, cpu.index.search(queries, 10, isp), "inverted")
+    before = bs.beam_step.launches
+    built = svt.Inverted.build(params, data, "l2")
+    assert bs.beam_step.launches > before
+    assert built.index.data.device.type == "cuda"

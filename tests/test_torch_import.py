@@ -31,6 +31,16 @@ PORT_MODULES = [
     "scalablevectorsearch_tpu_torch.quantization.leanvec, "
     "scalablevectorsearch_tpu_torch.index.vamana.iterator, "
     "scalablevectorsearch_tpu_torch.index.vamana.calibrate",
+    "scalablevectorsearch_tpu_torch.core.kmeans, "
+    "scalablevectorsearch_tpu_torch.index.ivf.params, "
+    "scalablevectorsearch_tpu_torch.index.ivf.kmeans, "
+    "scalablevectorsearch_tpu_torch.index.ivf.clustering, "
+    "scalablevectorsearch_tpu_torch.index.ivf.index, "
+    "scalablevectorsearch_tpu_torch.index.ivf.dynamic, "
+    "scalablevectorsearch_tpu_torch.index.ivf.iterator, "
+    "scalablevectorsearch_tpu_torch.orchestrators.ivf, "
+    "scalablevectorsearch_tpu_torch.index.inverted.index, "
+    "scalablevectorsearch_tpu_torch.orchestrators.inverted",
 ]
 
 

@@ -21,7 +21,14 @@ profiles with ``torch.profiler``:
   - the dynamic index over the f32 graph and rows: one add round (B 125,
     as ``add_points`` runs 5,000 rows), one consolidation batch (1024
     vertices after 10,000 soft deletes) and the medioid of the VALID rows
-    that ``compact`` and an entry-point delete recompute.
+    that ``compact`` and an entry-point delete recompute;
+  - IVF at ``chip_smoke.py``'s configuration (948 centroids over the 100k
+    rows, query batches of 2500): one ``search`` of 5000 queries at the
+    first n_probes with recall@10 >= 0.9, the k-means++ seeding (948
+    picks) and one ``kmeans_training`` minibatch epoch (10 steps of
+    10,000 rows); the inverted index at its defaults: one ``search`` of
+    5000 queries at the first setting of chip_smoke's sweep with
+    recall@10 >= 0.9.
 Calibration is a sequence of the searches above and has no row.
 For each it prints the wall time with the profiler on, the device busy
 time (the sum of the device-side events' times: kernels and copies), the
@@ -183,6 +190,8 @@ def main() -> int:
             pop_width=4, tail_frac=4))
     profile_leanvec_iterator(index, data, queries, params)
     profile_dynamic(index, params.resolved("l2"))
+    del index
+    profile_ivf_inverted(data, queries)
     return 0
 
 
@@ -238,6 +247,53 @@ def profile_dynamic(index, params, device="cuda") -> None:
                  pool_cap=min(r * (r + 1), 4 * r)))
     profiled("dynamic medioid of the VALID rows (compact)",
              dyn._reset_entry_point)
+
+
+def profile_ivf_inverted(data, queries) -> None:
+    """IVF and the inverted index over the main data (see the module
+    docstring); the winning settings come from chip_smoke's sweeps."""
+    import numpy as np
+    import chip_smoke as cs
+    import scalablevectorsearch_tpu_torch as svt
+    from scalablevectorsearch_tpu_torch.index.ivf import kmeans
+    gt = svt.exhaustive_search(data, queries, 10)
+    bp = cs.ivf_params(len(data))
+    ivf = svt.IVF.build(bp, data, "l2", query_batch_size=cs.IVF_BATCH)
+    probes, _ = cs.probe_sweep(ivf.index, queries, gt.ids, "profile: ivf")
+    sp = svt.IVFSearchParameters(n_probes=probes)
+    profiled(f"IVF search, n_probes {probes} ({bp.num_centroids} centroids, "
+             f"slot {ivf.index.slot}, batches of {cs.IVF_BATCH})",
+             lambda: ivf.index.search(queries, 10, sp))
+    del ivf
+    x = torch.from_numpy(data).cuda()
+    k = bp.num_centroids
+    profiled(f"k-means++ seeding, {k} picks over {len(data)} rows",
+             lambda: kmeans._kmeanspp_init(x, bp.seed, k))
+    seeds = kmeans._kmeanspp_init(x, bp.seed, k)
+    order = torch.from_numpy(np.random.default_rng(0).permutation(
+        len(data))).cuda()
+    mb = bp.resolved(len(data)).minibatch_size
+
+    def epoch():
+        c, n = seeds, torch.zeros(k, device="cuda")
+        for start in range(0, len(data), mb):
+            c, n, _ = kmeans._minibatch_step(x[order[start:start + mb]], c,
+                                             n, k)
+    profiled(f"kmeans_training minibatch epoch ({len(data) // mb} steps of "
+             f"{mb}, {k} centroids)", epoch)
+    t0 = time.perf_counter()
+    inv = svt.Inverted.build(svt.InvertedBuildParameters(), data, "l2")
+    torch.cuda.synchronize()
+    print(f"inverted build {time.perf_counter() - t0:.2f} s", flush=True)
+    for max_probes, eps in cs.INVERTED_SETTINGS:
+        isp = svt.InvertedSearchParameters(refinement_epsilon=eps,
+                                           max_probes=max_probes)
+        if svt.k_recall_at_n(gt, inv.index.search(queries, 10, isp)) >= 0.9:
+            profiled(f"inverted search, max_probes {max_probes} epsilon "
+                     f"{eps} (slot {inv.index.slot})",
+                     lambda: inv.index.search(queries, 10, isp))
+            return
+    raise RuntimeError("profile: no inverted setting reached recall 0.9")
 
 
 if __name__ == "__main__":
