@@ -181,8 +181,36 @@ Phases, one line of detail each (any failure exits non-zero):
      (recall >= 0.95) and inverted_search (>= 0.9 at some epsilon) at
      20,000 x 128; the three golden generators at the settings of their
      reference files; then beam_step against its plain version at every
-     call the phase made, as in 12.
-Each path (6-14, 16-18) starts with every launch count at 0 and reads them at
+     call the phase made, as in 12;
+  19. parallel (after 18, before 15), the multi-device package over
+     logical shards of the card (meshes of 1, 2 and 8 x cuda:0): 1M x 128
+     rows (seed 42) written as .fvecs and streamed into 8 shards
+     (shard_dataset_from_file), identical to the host-staged layout, and
+     1000 queries' sharded top-10 equal to the single-device flat search
+     but ties of the 10th distance; the main data's IVF index (948
+     centroids) with its probe units over 8 shards at n_probes 3, equal to
+     the single-device search (f32 uploads) up to proven near-ties, recall
+     reported; dp_greedy_search of the 5000 queries in 8 chunks at the
+     main window over f32 rows (beam_step) and LVQ-8 codes (beam_step_lvq)
+     against one greedy_search (ids identical or proven near-ties; keys
+     identical or their largest relative difference reported);
+     sharded_greedy_search over the main graph with f32, float16, LVQ-8
+     and SQ-int8 rows at 1, 2 and 8 shards, equal bit for bit across shard
+     counts, float16 and SQ bit for bit to the single-device search, f32
+     and LVQ-8 up to proven near-ties, recall@10 within 0.005;
+     sharded_build_graph over the main data's first 20,000 rows (main
+     parameters, sampled entries) at 2 shards and, streamed from .fvecs,
+     at 8: identical graphs, recall@10 and mean degree within 0.01 of the
+     single-device build; ShardedMutableVamanaIndex.from_single_chip of a
+     20,000-row MutableVamanaIndex at 8 shards through 1,000 adds, 1,000
+     deletes, consolidate and compact mirrored on the single-device index
+     (after every step ids equal up to proven near-ties, recall@10 >= 0.9
+     at window 100; the same external entry point after compact;
+     to_single_chip round trip identical); seconds per step and shard
+     count, launches, peak device memory; then every kernel against its
+     plain version at every call the phase made (step_shapes,
+     scored_shapes).
+Each path (6-14, 16-19) starts with every launch count at 0 and reads them at
 its end.  The line before the last is the JSON summary of the five
 kernels (beam_step, beam_step_lvq, beam_update, score_rows,
 gather_score_l2_partial; each kernel's launches are the sum over the
@@ -198,6 +226,10 @@ parent commit's, say, copied into a gitignored directory), and times its
 score_rows and gather_score_l2_partial in turns with this checkout's on
 the same inputs (other, this, this, other).  Phase 2 prints the SASS
 instruction counts of both gather_distance libraries (cuobjdump).
+
+    python3 chip_smoke.py --parallel-only
+
+runs phases 1, 2, 6 and 19 alone: the main path, then the parallel phase.
 """
 
 from __future__ import annotations
@@ -213,6 +245,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -3169,6 +3202,462 @@ def phase_tools(main_path: dict) -> dict:
     return {"launches": launches, "golden": generated}
 
 
+# parallel phase: logical shards of one card (k x cuda:0).  The 20,000-row
+# build and dynamic index are a depth cut of the main path's 100k rows (as
+# the tools phase's 20k jobs are); the sharded flat search streams 1M rows.
+PAR_FLAT_ROWS, PAR_FLAT_QUERIES = 1_000_000, 1000
+PAR_ROWS, PAR_QUERIES, PAR_DYN_BATCH = 20_000, 1000, 1000
+
+
+@contextlib.contextmanager
+def scored_shapes():
+    """Inside the block, record every distinct call ``greedy_search`` makes
+    of beam_update ((B, C, K, window, m)), score_rows ((B, K, d)) and
+    gather_score_l2_partial ((N, d, table type, B, K)); yields the three
+    sets.  The calls themselves are unchanged."""
+    from scalablevectorsearch_tpu_torch.index.vamana import search as smod
+    seen = {"beam_update": set(), "score_rows": set(),
+            "gather_score_l2_partial": set()}
+    update, rows_fn, gather = (smod.beam_update, smod.score_rows,
+                               smod.gather_score_l2_partial)
+
+    def rec_update(beam_keys, beam_packed, cand_keys, cand_ids, *, window, m):
+        seen["beam_update"].add((*beam_keys.shape, cand_keys.shape[1],
+                                 window, m))
+        return update(beam_keys, beam_packed, cand_keys, cand_ids,
+                      window=window, m=m)
+
+    def rec_rows(rows, queries):
+        seen["score_rows"].add(tuple(rows.shape))
+        return rows_fn(rows, queries)
+
+    def rec_gather(table, ids, queries):
+        seen["gather_score_l2_partial"].add(
+            (*table.shape, table.dtype, *ids.shape))
+        return gather(table, ids, queries)
+
+    smod.beam_update, smod.score_rows, smod.gather_score_l2_partial = (
+        rec_update, rec_rows, rec_gather)
+    try:
+        yield seen
+    finally:
+        smod.beam_update, smod.score_rows, smod.gather_score_l2_partial = (
+            update, rows_fn, gather)
+
+
+def check_scored_shapes(path: str, seen: dict) -> None:
+    """beam_update, score_rows and gather_score_l2_partial against their
+    plain versions at every call ``path`` made (:func:`scored_shapes`):
+    beam_update on tied (grid) and real keys, identical outputs; the
+    scoring kernels on exact (grid) inputs identical, on real inputs within
+    rtol 1e-5 (atol 1e-5 of the values' scale).  Run after the path has
+    read its launch counts."""
+    from scalablevectorsearch_tpu_torch.ops.kernels import beam_update as bu
+    from scalablevectorsearch_tpu_torch.ops.kernels import (
+        gather_distance as gd)
+    rng = np.random.default_rng(4)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    failures, max_err = [], 0.0
+    t0 = time.perf_counter()
+
+    def values(shape, d, grid):
+        x = torch.randn(shape, device="cuda", generator=gen)
+        if grid:
+            kmax = min(127, int(np.sqrt(2.0 ** 22 / d)))
+            x = torch.round(x * 32).clamp(-kmax, kmax) / 32
+        return x
+
+    def close(label, got, want, grid):
+        nonlocal max_err
+        if grid and not torch.equal(got, want):
+            failures.append(f"{label} grid differs")
+        err = float((got - want).abs().max())
+        max_err = max(max_err, 0.0 if grid else err)
+        if not torch.allclose(got, want, rtol=1e-5,
+                              atol=1e-5 * float(want.abs().max())):
+            failures.append(f"{label} grid={grid}: {err:.3g}")
+
+    for b, c, k, window, m in sorted(seen["beam_update"]):
+        for grid in (True, False):
+            args = make_update_case(rng, (b, c, k, 4, window, m), grid)
+            got = bu.beam_update(*args, window=window, m=m)
+            want = bu.beam_update_plain(*args, window=window, m=m)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                failures.append(f"beam_update {(b, c, k, window, m)} "
+                                f"grid={grid} differs")
+    for b, k, d in sorted(seen["score_rows"]):
+        for grid in (True, False):
+            rows, q = values((b, k, d), d, grid), values((b, d), d, grid)
+            for name, g, w in zip(("dots", "x2"), gd.score_rows(rows, q),
+                                  gd.score_rows_plain(rows, q)):
+                close(f"score_rows {(b, k, d)} {name}", g, w, grid)
+    for n, d, dtype, b, k in sorted(seen["gather_score_l2_partial"],
+                                    key=str):
+        for grid in (True, False):
+            table = values((n, d), d, grid).to(dtype)
+            q = values((b, d), d, grid)
+            ids = torch.randint(0, n, (b, k), device="cuda",
+                                dtype=torch.int32, generator=gen)
+            close(f"gather_score_l2_partial {(n, d, dtype, b, k)}",
+                  gd.gather_score_l2_partial(table, ids, q),
+                  gd.gather_score_l2_partial_plain(table, ids, q), grid)
+    counts = {name: len(s) for name, s in seen.items()}
+    if not all(counts.values()) or failures:
+        raise AssertionError(f"{path}: scored kernels vs plain at the path's "
+                             f"shapes {counts}: {'; '.join(failures)}")
+    log(f"{path}: beam_update, score_rows and gather_score_l2_partial match "
+        f"their plain versions at the path's calls {counts} (B "
+        f"{sorted({s[0] for s in seen['score_rows']})}); real inputs "
+        f"max_abs_err {max_err:.3g}; {time.perf_counter() - t0:.1f} s")
+
+
+def search_result(out, k: int = 10):
+    """A greedy search's first k ids as a result for the tie checks."""
+    return types.SimpleNamespace(ids=out.ids[:, :k].cpu().numpy())
+
+
+def same_or_ties(label: str, got, want, queries, rows_of) -> str:
+    """Two greedy searches' outputs: ids identical, or the rows whose first
+    10 ids differ proven near-ties on the host (:func:`ties_only`); keys
+    identical or their largest relative difference."""
+    if torch.equal(got.ids, want.ids):
+        ids = "ids identical"
+    else:
+        rows = ties_only(search_result(got), search_result(want), queries,
+                         rows_of, label)
+        ids = f"ids equal but {rows} rows of proven near-ties"
+    if torch.equal(got.keys, want.keys):
+        return ids + ", keys identical"
+    fin = torch.isfinite(want.keys) & (got.ids == want.ids)
+    rel = ((got.keys - want.keys).abs() / want.keys.abs().clamp_min(1e-30))
+    return ids + f", keys of equal ids within {float(rel[fin].max()):.3g} " \
+        "relative"
+
+
+def parallel_flat(mesh, card: str) -> None:
+    """1M x 128 rows streamed into 8 shards from .fvecs, held to the
+    host-staged layout; 1000 queries' sharded top-10 held to the port's
+    single-device flat search."""
+    import scalablevectorsearch_tpu_torch as svt
+    from scalablevectorsearch_tpu_torch.core import io as tio
+    from scalablevectorsearch_tpu_torch.parallel import sharded
+    data, queries = svt.generate_test_dataset(
+        PAR_FLAT_ROWS, PAR_FLAT_QUERIES, 128, seed=42)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flat.fvecs")
+        tio.write_vecs(path, data)
+        t0 = time.perf_counter()
+        streamed = sharded.shard_dataset_from_file(path, mesh)
+        sync()
+        load_s = time.perf_counter() - t0
+    staged = sharded.shard_dataset(svt.VectorDataset.from_array(data), mesh)
+    if (streamed.n, streamed.capacity) != (staged.n, staged.capacity) or \
+            not all(torch.equal(a.vectors, b.vectors)
+                    and torch.equal(a.norms_sq, b.norms_sq)
+                    for a, b in zip(streamed.shards, staged.shards)):
+        raise AssertionError("parallel: streamed 1M rows differ from the "
+                             "host-staged layout")
+    del staged
+    q = torch.from_numpy(queries).cuda()
+    t0 = time.perf_counter()
+    _keys, ids = sharded.sharded_flat_search(mesh, streamed, q, 10, "l2")
+    sync()
+    flat_s = time.perf_counter() - t0
+    want = svt.exhaustive_search(data, queries, 10)
+    got = types.SimpleNamespace(ids=ids.cpu().numpy())
+    ties = misses_are_ties(got, want.ids, queries, lambda i: data[i],
+                           "parallel flat")
+    del streamed
+    log(f"parallel: flat {PAR_FLAT_ROWS}x128 streamed into 8 shards in "
+        f"{load_s:.2f} s (identical to the host-staged layout); "
+        f"{PAR_FLAT_QUERIES} queries top-10 in {flat_s:.3f} s, ids equal "
+        f"to the single-device flat search but {ties} ties of the 10th "
+        f"distance ({card})")
+
+
+def parallel_ivf(main_path: dict, mesh, card: str) -> None:
+    """The main data's IVF index at phase_ivf's settings, its probe units
+    over 8 shards, n_probes 3: the single-device search's ids (f32
+    uploads) up to proven near-ties; recall@10."""
+    import scalablevectorsearch_tpu_torch as svt
+    from scalablevectorsearch_tpu_torch.parallel import sharded
+    data, queries, gt = (main_path[key] for key in ("data", "queries", "gt"))
+    t0 = time.perf_counter()
+    index = svt.IVF.build(ivf_params(data.shape[0]), data, "l2").index
+    sync()
+    build_s = time.perf_counter() - t0
+    index.query_upload_dtype = "float32"
+    want = index.search(queries, 10, svt.IVFSearchParameters(n_probes=3))
+    t0 = time.perf_counter()
+    _keys, ids = sharded.sharded_ivf_search(
+        mesh, index, torch.from_numpy(queries).cuda(), 10, n_probes=3)
+    sync()
+    search_s = time.perf_counter() - t0
+    got = types.SimpleNamespace(ids=ids.cpu().numpy())
+    rows = ties_only(got, want, queries, lambda i: data[i], "parallel ivf")
+    log(f"parallel: ivf {index.num_probe_units} probe units over 8 shards "
+        f"(built in {build_s:.1f} s), n_probes 3: {len(queries)} queries in "
+        f"{search_s:.3f} s, recall@10 {svt.k_recall_at_n(gt, got):.4f} "
+        f"(single device {svt.k_recall_at_n(gt, want):.4f}); ids equal but "
+        f"{rows} rows of proven near-ties ({card})")
+
+
+def parallel_searches(main_path: dict, meshes: dict, dp_mesh, card: str
+                      ) -> None:
+    """dp_greedy_search at 8 chunks over f32 rows (beam_step) and LVQ-8
+    (beam_step_lvq) against one greedy_search; sharded_greedy_search over
+    f32, float16, LVQ-8 and SQ-int8 views at 1, 2 and 8 shards (equal bit
+    for bit), against the single-device search (float16, SQ: bit for bit;
+    f32, LVQ-8: up to proven near-ties) and its recall (within 0.005)."""
+    import scalablevectorsearch_tpu_torch as svt
+    from scalablevectorsearch_tpu_torch.index.vamana import search as smod
+    from scalablevectorsearch_tpu_torch.parallel import sharded
+    ix = main_path["index"].index
+    data, queries, gt = (main_path[key] for key in ("data", "queries", "gt"))
+    window = main_path["window"]
+    q = torch.from_numpy(queries).cuda()
+    entries = ix._entry_sampler.select(ix.distance, q)
+    kw = dict(window=window, capacity=max(window, 10),
+              max_iters=smod.default_max_iters(window), distance=ix.distance)
+    lvq = svt.LVQDataset.compress(data, bits=8)
+    kinds = {"f32": ix.data, "lvq8": lvq,
+             "float16": svt.VectorDataset.from_array(data,
+                                                     dtype=torch.float16),
+             "sq8": svt.SQDataset.compress(data)}
+
+    def rows_of(ds):
+        if ds is lvq:
+            return lambda i: lvq.get(torch.as_tensor(i).cuda())[:, :128] \
+                .cpu().numpy()
+        return lambda i: data[i]
+
+    for kind in ("f32", "lvq8"):
+        ds = kinds[kind]
+        want = smod.greedy_search(ix.graph, ds, q, entries, **kw)
+        t0 = time.perf_counter()
+        got = sharded.dp_greedy_search(dp_mesh, ix.graph, ds, q, entries,
+                                       **kw)
+        sync()
+        dp_s = time.perf_counter() - t0
+        verdict = same_or_ties(f"parallel dp {kind}", got, want, queries,
+                               rows_of(ds))
+        log(f"parallel: dp_greedy_search {kind} {len(queries)} queries in 8 "
+            f"chunks at window {window}: {dp_s:.3f} s; ids and keys against "
+            f"one greedy_search: {verdict} ({card})")
+    for kind, ds in kinds.items():
+        want = smod.greedy_search(ix.graph, ds, q, entries, **kw)
+        outs, secs = {}, {}
+        for s, mesh in meshes.items():
+            graph = sharded.shard_graph(ix.graph, mesh)
+            view = sharded.shard_any_dataset(ds, mesh)
+            t0 = time.perf_counter()
+            outs[s] = sharded.sharded_greedy_search(mesh, graph, view, q,
+                                                    entries, **kw)
+            sync()
+            secs[s] = round(time.perf_counter() - t0, 3)
+            del graph, view
+        for s in (2, 8):
+            if not (torch.equal(outs[s].ids, outs[1].ids)
+                    and torch.equal(outs[s].keys, outs[1].keys)):
+                raise AssertionError(f"parallel: sharded {kind} at {s} "
+                                     "shards differs from 1 shard")
+        if kind in ("float16", "sq8"):
+            if not (torch.equal(outs[8].ids, want.ids)
+                    and torch.equal(outs[8].keys, want.keys)):
+                raise AssertionError(f"parallel: sharded {kind} differs from "
+                                     "the single-device search")
+            verdict = "identical"
+        else:
+            verdict = same_or_ties(f"parallel sharded {kind}", outs[8], want,
+                                   queries, rows_of(ds))
+        r_sh = svt.k_recall_at_n(gt, search_result(outs[8]))
+        r_one = svt.k_recall_at_n(gt, search_result(want))
+        log(f"parallel: sharded_greedy_search {kind} at window {window}, "
+            f"seconds by shard count {secs}: 8 = 2 = 1 shard bit for bit; "
+            f"against one device {verdict}; recall@10 {r_sh:.4f} (one "
+            f"device {r_one:.4f}) ({card})")
+        if abs(r_sh - r_one) > 0.005:
+            raise AssertionError(f"parallel: sharded {kind} recall {r_sh} vs "
+                                 f"{r_one}")
+        del outs, want
+
+
+def parallel_build(main_path: dict, meshes: dict, card: str) -> None:
+    """sharded_build_graph over the main data's first PAR_ROWS rows with the
+    main path's parameters and sampled entries: 2 shards from the host
+    rows, 8 streamed from .fvecs, identical graphs; recall@10 and mean
+    degree within 0.01 of the single-device build's."""
+    import scalablevectorsearch_tpu_torch as svt
+    from scalablevectorsearch_tpu_torch.core import io as tio
+    from scalablevectorsearch_tpu_torch.index.vamana import build as bmod
+    from scalablevectorsearch_tpu_torch.index.vamana import search as smod
+    from scalablevectorsearch_tpu_torch.parallel import sharded
+    rows = main_path["data"][:PAR_ROWS]
+    queries = main_path["queries"][:PAR_QUERIES]
+    params = main_path_params()
+    ds = svt.VectorDataset.from_array(rows)
+    graphs, secs = {}, {}
+    t0 = time.perf_counter()
+    graphs["one device"] = bmod.build_graph(ds, params, "l2",
+                                            sampled_entries=True)
+    sync()
+    secs["one device"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graphs["2 shards"] = sharded.sharded_build_graph(
+        meshes[2], rows, params, "l2", sampled_entries=True)
+    sync()
+    secs["2 shards"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rows.fvecs")
+        tio.write_vecs(path, rows)
+        t0 = time.perf_counter()
+        graphs["8 shards streamed"] = sharded.sharded_build_graph(
+            meshes[8], path, params, "l2", sampled_entries=True)
+        sync()
+        secs["8 shards streamed"] = time.perf_counter() - t0
+    (g2, e2), (g8, e8) = graphs["2 shards"], graphs["8 shards streamed"]
+    if e2 != e8 or not torch.equal(g2.adjacency, g8.adjacency) \
+            or not torch.equal(g2.degrees, g8.degrees):
+        raise AssertionError("parallel: the 2-shard and the streamed "
+                             "8-shard builds differ")
+    gt = svt.exhaustive_search(rows, queries, 10)
+    q = torch.from_numpy(queries).cuda()
+    window = main_path["window"]
+    stats = {}
+    for label, (g, e) in graphs.items():
+        out = smod.greedy_search(
+            g, ds, q, torch.tensor([e], dtype=torch.int32, device="cuda"),
+            window=window, capacity=max(window, 10),
+            max_iters=smod.default_max_iters(window), distance="l2")
+        stats[label] = (svt.k_recall_at_n(gt, search_result(out)),
+                        g.mean_degree())
+    log(f"parallel: sharded_build_graph {PAR_ROWS}x128 (main parameters, "
+        f"sampled entries), seconds "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+        + "; the 2-shard and streamed 8-shard graphs identical; (recall@10 "
+        f"at window {window}, mean degree) "
+        + ", ".join(f"{k} ({r:.4f}, {d:.3f})" for k, (r, d) in stats.items())
+        + f" ({card})")
+    r1, d1 = stats["one device"]
+    if abs(stats["2 shards"][0] - r1) > 0.01 or \
+            abs(stats["2 shards"][1] - d1) > 0.01:
+        raise AssertionError(f"parallel: sharded build {stats}")
+
+
+def parallel_dynamic(main_path: dict, mesh, card: str) -> None:
+    """ShardedMutableVamanaIndex.from_single_chip of a PAR_ROWS-row
+    MutableVamanaIndex at 8 shards, one cycle of adds, deletes,
+    consolidate and compact mirrored on the single-device index: after
+    every step the searches' ids equal up to proven near-ties (f32
+    uploads) and recall@10 >= 0.9 at the job's window; after compact the
+    same external entry point; to_single_chip round trips identically."""
+    import scalablevectorsearch_tpu_torch as svt
+    from scalablevectorsearch_tpu_torch.parallel.dynamic import (
+        ShardedMutableVamanaIndex)
+    total = PAR_ROWS + PAR_DYN_BATCH
+    rows = main_path["data"][:total]
+    queries = main_path["queries"][:PAR_QUERIES]
+    rng = np.random.default_rng(5)
+    t0 = time.perf_counter()
+    sc = svt.MutableVamanaIndex(main_path_params(), rows[:PAR_ROWS],
+                                np.arange(PAR_ROWS), "l2")
+    sync()
+    build_s = time.perf_counter() - t0
+    sh = ShardedMutableVamanaIndex.from_single_chip(sc, mesh)
+    for index in (sc, sh):
+        index.search_window_size = TOOLS_WINDOW
+        index.query_upload_dtype = "float32"
+    secs = {"build (one device)": build_s}
+
+    def check(step):
+        live = sc.all_ids()
+        gt = svt.exhaustive_search(rows[live], queries, 10)
+        want, got = sc.search(queries, 10), sh.search(queries, 10)
+        ties = ties_only(got, want, queries, lambda i: rows[i],
+                         f"parallel dynamic {step}")
+        recall = svt.k_recall_at_n(live[gt.ids], got.ids)
+        log(f"parallel: dynamic {step}: size {sh.size}, recall@10 "
+            f"{recall:.4f} at window {TOOLS_WINDOW}, ids equal to the "
+            f"single-device index's but {ties} rows of proven near-ties")
+        if recall < 0.9:
+            raise AssertionError(f"parallel dynamic {step}: recall {recall}")
+
+    def both(step, fn):
+        for label, index in (("one device", sc), ("8 shards", sh)):
+            t0 = time.perf_counter()
+            fn(index)
+            sync()
+            secs[f"{step} ({label})"] = time.perf_counter() - t0
+        check(step)
+
+    check("from_single_chip")
+    both("add", lambda ix: ix.add_points(rows[PAR_ROWS:],
+                                         np.arange(PAR_ROWS, total)))
+    doomed = rng.choice(total, size=PAR_DYN_BATCH, replace=False)
+    both("delete", lambda ix: ix.delete_points(doomed))
+    both("consolidate", lambda ix: ix.consolidate())
+    both("compact", lambda ix: ix.compact())
+    entry = (int(sc.translator.to_external([sc.entry_point])[0]),
+             int(sh.translator.to_external([sh.entry_point])[0]))
+    if entry[0] != entry[1]:
+        raise AssertionError(f"parallel dynamic: entry points {entry}")
+    back = ShardedMutableVamanaIndex.from_single_chip(sh.to_single_chip(),
+                                                      mesh)
+    if not (np.array_equal(back.status, sh.status)
+            and back.entry_point == sh.entry_point
+            and np.array_equal(back.all_ids(), sh.all_ids())
+            and torch.equal(back.graph.gather().adjacency,
+                            sh.graph.gather().adjacency)
+            and torch.equal(back.data.gather().vectors,
+                            sh.data.gather().vectors)):
+        raise AssertionError("parallel dynamic: to_single_chip round trip "
+                             "differs")
+    log(f"parallel: dynamic {PAR_ROWS}x128 at 8 shards, seconds "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+        + f"; entry point after compact external id {entry[0]} on both; "
+        f"to_single_chip round trip identical ({card})")
+
+
+def phase_parallel(main_path: dict) -> dict:
+    """The multi-device package over logical shards of the card (k x
+    cuda:0): the sharded flat and IVF searches, dp_greedy_search,
+    sharded_greedy_search over four row types, sharded_build_graph and the
+    sharded dynamic index.  Every count starts at 0 here; then every
+    kernel is held to its plain version at each call the phase made.
+    Returns the phase's launches."""
+    from scalablevectorsearch_tpu_torch.parallel import mesh as mesh_mod
+    card = card_line()
+    meshes = {s: mesh_mod.make_mesh(s, "shard", devices=["cuda:0"] * s)
+              for s in (1, 2, 8)}
+    dp_mesh = mesh_mod.make_mesh(8, "dp", devices=["cuda:0"] * 8)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with step_shapes() as steps, scored_shapes() as scored:
+        for name, run in (
+                ("flat", lambda: parallel_flat(meshes[8], card)),
+                ("ivf", lambda: parallel_ivf(main_path, meshes[8], card)),
+                ("searches", lambda: parallel_searches(main_path, meshes,
+                                                       dp_mesh, card)),
+                ("build", lambda: parallel_build(main_path, meshes, card)),
+                ("dynamic", lambda: parallel_dynamic(main_path, meshes[8],
+                                                     card))):
+            t1 = time.perf_counter()
+            run()
+            log(f"parallel: {name} {time.perf_counter() - t1:.1f} s")
+    launches = {name: n for name, n in read_counts().items() if n}
+    log(f"parallel: {time.perf_counter() - t0:.1f} s; launches {launches}; "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({card})")
+    missing = [k.__name__ for k in counted_kernels()
+               if not launches.get(k.__name__)]
+    if missing:
+        raise AssertionError(f"parallel: kernels not launched: {missing}")
+    check_step_shapes("parallel", steps)
+    check_scored_shapes("parallel", scored)
+    return launches
+
+
 def kernel_entry(name: str, replaces: str, by_path: dict, kern: dict,
                  shape: str, build_s: float,
                  source: str = "beam_step.cu") -> dict:
@@ -3197,10 +3686,16 @@ def main(argv: list) -> int:
     other_gather = None
     if kernels_only and argv[1:2] == ["--other-gather"] and len(argv) == 3:
         other_gather = argv[2]
-    elif argv and argv != ["--kernels-only"]:
+    elif argv and argv not in (["--kernels-only"], ["--parallel-only"]):
         raise SystemExit(f"chip_smoke: unknown arguments {argv}")
     device = phase_device()
     build_s, other_lib = phase_build(other_gather)
+    if argv == ["--parallel-only"]:
+        # the main path and the parallel phase only, for work on the
+        # multi-device package
+        log(json.dumps({"parallel": phase_parallel(phase_main_path())}))
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
     kern = phase_kernels()
     kern_lvq = phase_kernels_lvq()
     kern_scored = phase_kernels_scored(other_lib)
@@ -3243,6 +3738,7 @@ def main(argv: list) -> int:
         tools = phase_tools(main_path)
     by_path["tools"] = tools["launches"]
     check_step_shapes("tools", seen)
+    by_path["parallel"] = phase_parallel(main_path)
     del main_path                       # frees the 100k index
     phase_golden(tools["golden"])
     log(f"paths: {time.perf_counter() - t0:.1f} s from the main path's "

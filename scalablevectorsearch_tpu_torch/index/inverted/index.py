@@ -261,8 +261,6 @@ def _inverted_serve_batch(graph, centroid_data, data, ids_padded, q, q_scale,
 class InvertedIndex:
     SCHEMA = "inverted_index_parameters"
     VERSION = saveload.Version(0, 0, 1)
-    # per-index query transfer dtype override (see IVFIndex)
-    query_upload_dtype = None
 
     def __init__(self, graph, centroid_data, centroid_ids, data, ids_padded,
                  slot: int, n: int, entry_point: int, distance,
@@ -379,7 +377,7 @@ class InvertedIndex:
             out_vals=np.full((nq, k), np.inf, dtype=np.float32))
         for start, q_i, scale_i in upload_batches(
                 queries, plan, self.data.padded_dim, device,
-                self.query_upload_dtype, cancel):
+                getattr(self, "query_upload_dtype", None), cancel):
             ids, vals = _inverted_serve_batch(
                 self.graph, self.centroid_data, self.data, self.ids_padded,
                 q_i, scale_i, entry_ids, float(params.refinement_epsilon),

@@ -43,9 +43,6 @@ from .params import IVFBuildParameters, IVFSearchParameters
 
 
 class DynamicIVFIndex:
-    # per-index query transfer dtype override (see IVFIndex)
-    query_upload_dtype = None
-
     def __init__(self, clustering: Clustering, data, external_ids, distance,
                  *, slot_slack: float = 1.5, query_batch_size: int = 2048,
                  scan_subtile: int = 256, logger=None, device="cuda"):

@@ -310,7 +310,7 @@ def serve_ivf_layout(index, queries, k: int, *, n_probes: int, keep: int,
                      tiles: int = 1, cancel=None, translate_ids=None):
     """The serving pipeline of every padded-posting IVF layout (``index``
     has ``centroids``, ``centroid_norms``, ``data``, ``ids_padded``,
-    ``slot``, ``scan_subtile``, ``query_batch_size`` and
+    ``slot``, ``scan_subtile``, ``query_batch_size`` and, where set,
     ``query_upload_dtype``): equal-size query batches uploaded
     asynchronously in the upload dtype, one dispatch per batch, every
     device -> host copy started before the first blocking read; the
@@ -331,7 +331,7 @@ def serve_ivf_layout(index, queries, k: int, *, n_probes: int, keep: int,
         translate_ids=translate_ids)
     for start, q_i, scale_i in upload_batches(
             queries, plan, index.data.padded_dim, index.data.device,
-            index.query_upload_dtype, cancel):
+            getattr(index, "query_upload_dtype", None), cancel):
         ids, vals = _ivf_serve_batch(
             index.centroids, index.centroid_norms, index.data,
             index.ids_padded, rerank_data, q_i, scale_i,
@@ -349,9 +349,6 @@ class IVFIndex:
 
     SCHEMA = "ivf_index_parameters"
     VERSION = saveload.Version(0, 0, 1)
-    # per-index query transfer dtype ("float32" / "float16" / "bfloat16" /
-    # "int8"); None defers to the SVT_QUERY_UPLOAD_DTYPE env default
-    query_upload_dtype = None
 
     def __init__(self, centroids, data, ids_padded, slot: int, n: int,
                  distance, search_parameters: Optional[IVFSearchParameters]

@@ -14,10 +14,15 @@ with the same round structure (the reference's ``VamanaBuilder``,
 
 Two passes over all batches, reverse-edge alphas 1.0 then ``alpha``.  The
 dataset is any dataset-protocol object (``VectorDataset`` of any element
-type, ``SQDataset``, ``LVQDataset``, ``LVQFullView``): rows go through
-``get`` / ``get_f32`` and norms through ``norms_of``, so compressed data is
-searched and pruned on its decoded rows (float16 / int8 / SQ searches take
-``greedy_search``'s scored route).  The
+type, ``SQDataset``, ``LVQDataset``, ``LVQFullView``, or a shard view of
+``parallel/sharded.py``, which scores through its ``score_keys``): rows go
+through ``get`` / ``get_f32`` and norms through ``norms_of``, so compressed
+data is searched and pruned on its decoded rows (float16 / int8 / SQ
+searches take ``greedy_search``'s scored route).  A round is two steps,
+:func:`search_and_prune` (each node's search and prune, independent across
+the batch) and :func:`commit_rows` (the row commit and the reverse edges,
+which span the batch), so the query-parallel round of
+``parallel/sharded.py`` can split the first.  The
 JAX package's ``associative_scan(jnp.maximum)`` is ``torch.cummax`` here,
 and its dropped (``mode="drop"``) scatters write into sink slots that are
 sliced off.  Sorts are stable, so the build is deterministic for a fixed
@@ -47,7 +52,11 @@ MAX_BACKEDGES = 16   # per-destination reverse-edge overflow cap per round
 
 
 def _score_against(data, distance, queries, q_norms, ids):
-    """Keys from each query row to its gathered candidate ids (+inf invalid)."""
+    """Keys from each query row to its gathered candidate ids (+inf invalid);
+    a view with ``score_keys`` runs this function on each of its parts."""
+    custom = getattr(data, "score_keys", None)
+    if custom is not None:
+        return custom(distance, queries, q_norms, ids, _score_against)
     clamped = ids.clamp_min(0)
     keys = dist_ops.gathered_keys(distance, queries, data.get(clamped),
                                   gathered_norms_sq=data.norms_of(clamped),
@@ -93,14 +102,37 @@ def build_round(graph: NeighborGraph,
                 max_degree: int, prune_chunk: int, pop_width: int = 4,
                 prune_pool: int = 0, tail_frac: int = 1):
     """One synchronous build round over a batch of nodes: search -> prune
-    -> commit -> reverse-edge append -> overflow grouping -> reprune.
+    (:func:`search_and_prune`), then commit -> reverse-edge append ->
+    overflow grouping -> reprune (:func:`commit_rows`).
 
     Returns (graph, dropped_backedges): ``dropped_backedges`` is a device
     scalar counting overflow backedges beyond the per-round caps.
     """
+    new_rows, new_degs = search_and_prune(
+        graph, data, batch_ids, entry_ids, sampler, sample_invalid,
+        window=window, capacity=capacity, max_iters=max_iters,
+        distance=distance, pool_size=pool_size, gen_alpha=gen_alpha,
+        max_degree=max_degree, prune_chunk=prune_chunk, pop_width=pop_width,
+        prune_pool=prune_pool, tail_frac=tail_frac)
+    return commit_rows(graph, data, batch_ids, batch_valid, new_rows,
+                       new_degs, rev_alpha=rev_alpha, prune_to=prune_to,
+                       distance=distance, max_degree=max_degree,
+                       prune_chunk=prune_chunk)
+
+
+def search_and_prune(graph: NeighborGraph, data, batch_ids: torch.Tensor,
+                     entry_ids: torch.Tensor, sampler=None,
+                     sample_invalid: Optional[torch.Tensor] = None, *,
+                     window: int, capacity: int, max_iters: int,
+                     distance: dist_ops.DistanceType, pool_size: int,
+                     gen_alpha: float, max_degree: int, prune_chunk: int,
+                     pop_width: int = 4, prune_pool: int = 0,
+                     tail_frac: int = 1):
+    """The first step of :func:`build_round`: each node's greedy search
+    with pool tracking over the round-start graph, pool ∪ current
+    adjacency, RobustPrune with the build alpha.  Rows are independent of
+    one another.  Returns (new_rows (B, R) -1 padded, new_degrees (B,))."""
     r = max_degree
-    b = batch_ids.shape[0]
-    device = batch_ids.device
     queries = data.get(batch_ids)
     q_norms = data.norms_of(batch_ids)
 
@@ -134,12 +166,25 @@ def build_round(graph: NeighborGraph,
     pool_keys, pool_ids = topk_ops.sort_by_key(pool_keys, pool_ids)
     pool_ids = torch.where(torch.isfinite(pool_keys), pool_ids, -1)
 
-    # --- 2. prune + commit ----------------------------------------------
+    # --- 2. prune --------------------------------------------------------
     pp = prune_pool if 0 < prune_pool < pool_size else pool_size
     new_rows, new_degs = _prune_pools(
         data, pool_ids[:, :pp], pool_keys[:, :pp], batch_ids, gen_alpha, r,
         distance, prune_chunk)
-    new_rows = _pad_cols(new_rows, r)
+    return _pad_cols(new_rows, r), new_degs
+
+
+def commit_rows(graph: NeighborGraph, data, batch_ids: torch.Tensor,
+                batch_valid: torch.Tensor, new_rows: torch.Tensor,
+                new_degs: torch.Tensor, *, rev_alpha: float, prune_to: int,
+                distance: dist_ops.DistanceType, max_degree: int,
+                prune_chunk: int):
+    """The second step of :func:`build_round`, over the whole batch: the
+    valid nodes' rows committed, their reverse edges appended, overflowing
+    destinations re-pruned.  Returns (graph, dropped_backedges)."""
+    r = max_degree
+    b = batch_ids.shape[0]
+    device = batch_ids.device
     commit_ids = torch.where(batch_valid, batch_ids, graph.capacity)
     graph = graph.replace_rows(commit_ids, new_rows, new_degs)
 
@@ -252,6 +297,7 @@ def build_graph(data,
                 entry_sample_size: Optional[int] = None,
                 logger=None,
                 timer: Optional[timing.Timer] = None,
+                graph: Optional[NeighborGraph] = None,
                 ) -> Tuple[NeighborGraph, int]:
     """Build a Vamana graph over ``data``; returns (graph, entry_point).
 
@@ -259,7 +305,9 @@ def build_graph(data,
     then alpha).  ``first_pass_window``: optional smaller search window for
     pass 1.  ``sampled_entries``: start each node's build search from its
     nearest row in a resident sample instead of the medioid (pass 1 masks
-    sample rows not yet inserted).
+    sample rows not yet inserted).  ``graph``: the empty graph to build
+    into (default ``NeighborGraph.empty(n, R)`` on the data's device; a
+    shard view builds sharded).
     """
     distance = dist_ops.as_distance(distance)
     params = params.resolved(distance)
@@ -281,7 +329,8 @@ def build_graph(data,
         sampler = build_sampler(data, entry_sample_size, seed=0)
         sample_ids_host = sampler.ids.cpu().numpy()
 
-    graph = NeighborGraph.empty(n, r, device=device)
+    if graph is None:
+        graph = NeighborGraph.empty(n, r, device=device)
     b = batch_size if batch_size is not None else default_batch_size(n)
     pool_size = params.max_candidate_pool_size
     num_batches = -(-n // b)

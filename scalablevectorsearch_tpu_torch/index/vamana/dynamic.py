@@ -161,9 +161,6 @@ class MutableVamanaIndex:
 
     SCHEMA = "dynamic_vamana_index_parameters"
     VERSION = saveload.Version(0, 0, 2)  # 0.0.2: optional entry_sampler
-    # per-index query transfer dtype ("float32"/"float16"/"bfloat16"/
-    # "int8"); None defers to the SVT_QUERY_UPLOAD_DTYPE env default
-    query_upload_dtype = None
 
     def __init__(self, parameters: VamanaBuildParameters, data, external_ids,
                  distance, *, capacity: Optional[int] = None,
@@ -419,7 +416,7 @@ class MutableVamanaIndex:
                 slots >= 0, translator.to_external(slots), -1))
         for start, q_i, scale_i in upload_batches(
                 queries, plan, self.data.padded_dim, device,
-                self.query_upload_dtype, cancel):
+                getattr(self, "query_upload_dtype", None), cancel):
             ids, vals = _dyn_search_batch(
                 self.graph, self.data, packed, self.deleted_mask, sampler,
                 q_i, scale_i, entry_ids,
@@ -448,11 +445,10 @@ class MutableVamanaIndex:
             reuse, np.arange(high, high + n_new)]).astype(np.int64)
 
         if high + n_new > self.data.capacity:
-            new_cap = dt.padded_count(max(2 * self.data.capacity,
-                                          high + n_new))
-            grow = new_cap - self.status.size
-            self.data = self.data.with_capacity(new_cap)
-            self.graph = self.graph.with_capacity(new_cap)
+            self.data = self.data.with_capacity(dt.padded_count(
+                max(2 * self.data.capacity, high + n_new)))
+            self.graph = self.graph.with_capacity(self.data.capacity)
+            grow = self.data.capacity - self.status.size
             self.deleted_mask = torch.cat([
                 self.deleted_mask, self.deleted_mask.new_zeros(grow)])
             self.status = np.pad(self.status, (0, grow))
@@ -491,10 +487,8 @@ class MutableVamanaIndex:
         if deleted.size == 0:
             return
         device = self.data.device
-        valid_mask = torch.from_numpy(self.status == SLOT_VALID).to(device)
-        affected = np.nonzero(_affected_by_deleted(
-            self.graph.adjacency, self.deleted_mask,
-            valid_mask).cpu().numpy())[0]
+        affected = self._affected(
+            torch.from_numpy(self.status == SLOT_VALID).to(device))
         r = self.graph.max_degree
         pool_cap = min(r * (r + 1), 4 * r)   # nearest candidates pruned
         for start in range(0, affected.size, batch_size):
@@ -515,6 +509,12 @@ class MutableVamanaIndex:
         self.deleted_mask = self.deleted_mask.index_fill(0, deleted_dev,
                                                          False)
         self._invalidate_packed()
+
+    def _affected(self, valid_mask: torch.Tensor) -> np.ndarray:
+        """Slots of the valid vertices with a deleted neighbour."""
+        return np.nonzero(_affected_by_deleted(
+            self.graph.adjacency, self.deleted_mask,
+            valid_mask).cpu().numpy())[0]
 
     def compact(self) -> None:
         """Drop the empty slots and lower the high-water mark by a dense

@@ -37,6 +37,14 @@ kind of row has one route:
   which leave out candidates already in the beam; those entered the pool
   when they entered the beam, so the pool is the JAX branch's.
 
+A dataset view with a ``score_keys(distance, queries, q_norms, ids,
+scorer)`` method (the shard views of ``parallel/sharded.py``, as in the
+JAX package's ``search.py:174-183``) scores every candidate itself: it runs
+``scorer`` (one of this module's or ``build.py``'s scorers, given a
+dataset) on each of its parts and merges the keys.  Such a view takes the
+scored route, whatever its rows; its candidates are scored by
+:func:`_route_keys`, the arithmetic one device's route gives those rows.
+
 Beams of more than 1024 slots, for any dataset, take the **wide route**:
 the JAX XLA branch ported as it is (pop the first m, expand, score as the
 scored route does, torch sort-merge of beam and candidates, tail
@@ -107,38 +115,71 @@ def _compact_tail_phase(state, queries, b2, run, active_of):
     return (it1, *merged)
 
 
-def _candidate_scorer(data, distance: dist_ops.DistanceType):
-    """Scoring of the scored and wide routes: ``score(ids, q_rows, q2,
-    rows=None)`` -> (B, K) keys, +inf for ids outside ``[0, n)``.
+def _seed_keys(data, distance, queries, q_norms, ids):
+    """(B, K) ids -> (B, K) keys with +inf for ids outside ``[0, n)``: the
+    rows through ``data.get``, scored by ``gathered_keys`` (the seed of
+    every route and the lossy packed re-score)."""
+    keys = dist_ops.gathered_keys(distance, queries,
+                                  data.get(ids.clamp_min(0)),
+                                  query_norms_sq=q_norms)
+    return torch.where((ids >= 0) & (ids < data.n), keys, float("inf"))
+
+
+def _candidate_keys(data, distance, q_rows, q2, ids, rows=None):
+    """Scoring of the scored and wide routes: (B, K) ids -> (B, K) keys,
+    +inf for ids outside ``[0, n)``.
 
     An L2 ``VectorDataset`` without given rows goes through
     :func:`gather_score_l2_partial` over its table; everything else through
     :func:`score_rows` over ``rows`` (or ``data.get_f32`` of the ids)."""
-    table = data.vectors if isinstance(data, VectorDataset) and \
-        distance == dist_ops.DistanceType.L2 else None
-    inf = float("inf")
+    clamped = ids.clamp(0, data.capacity - 1)
+    if rows is None and isinstance(data, VectorDataset) and \
+            distance == dist_ops.DistanceType.L2:
+        keys = dist_ops.keys_from_l2_partial(
+            gather_score_l2_partial(data.vectors, clamped, q_rows), q2)
+    else:
+        if rows is None:
+            rows = data.get_f32(clamped)
+        dots, x2 = score_rows(rows.float().contiguous(), q_rows)
+        keys = dist_ops.keys_from_parts(distance, dots, x2, q2)
+    return torch.where((ids >= 0) & (ids < data.n), keys, float("inf"))
 
-    def score(ids, q_rows, q2, rows=None):
-        clamped = ids.clamp(0, data.capacity - 1)
-        if rows is None and table is not None:
-            keys = dist_ops.keys_from_l2_partial(
-                gather_score_l2_partial(table, clamped, q_rows), q2)
-        else:
-            if rows is None:
-                rows = data.get_f32(clamped)
-            dots, x2 = score_rows(rows.float().contiguous(), q_rows)
-            keys = dist_ops.keys_from_parts(distance, dots, x2, q2)
-        return torch.where((ids >= 0) & (ids < data.n), keys, inf)
 
-    return score
+def _route_keys(data, distance, q_rows, q2, ids):
+    """The candidate keys one device's route gives ``data``'s rows: for the
+    rows the beam-step kernels take, their arithmetic (:func:`score_rows`
+    over the f32 rows, ``keys_from_parts``: the plain beam step's formula),
+    else :func:`_candidate_keys`.  Shard views score each shard with it, so
+    a sharded search computes the keys its rows get on one device (bit for
+    bit on the CPU, where the kernels run their plain versions)."""
+    if not _beam_rows(data):
+        return _candidate_keys(data, distance, q_rows, q2, ids)
+    rows = data.get_f32(ids.clamp(0, data.capacity - 1))
+    dots, x2 = score_rows(rows.contiguous(), q_rows)
+    keys = dist_ops.keys_from_parts(distance, dots, x2, q2)
+    return torch.where((ids >= 0) & (ids < data.n), keys, float("inf"))
+
+
+def _candidate_scorer(data, distance: dist_ops.DistanceType):
+    """``score(ids, q_rows, q2, rows=None)`` -> (B, K) keys of the scored
+    and wide routes: :func:`_candidate_keys`, or a view's ``score_keys``
+    over :func:`_route_keys`."""
+    custom = getattr(data, "score_keys", None)
+    if custom is not None:
+        return lambda ids, q_rows, q2, rows=None: custom(
+            distance, q_rows, q2, ids, _route_keys)
+    return lambda ids, q_rows, q2, rows=None: _candidate_keys(
+        data, distance, q_rows, q2, ids, rows)
 
 
 def _beam_rows(data) -> bool:
     """Datasets whose rows go to the beam-step kernels (f32 / bf16 rows,
-    LVQ codes or their decode); the others take the scored route."""
-    return isinstance(data, (LVQDataset, LVQFullView)) or (
-        isinstance(data, VectorDataset)
-        and data.dtype in (torch.float32, torch.bfloat16))
+    LVQ codes or their decode); the others, and every view with its own
+    ``score_keys``, take the scored route."""
+    return getattr(data, "score_keys", None) is None and (
+        isinstance(data, (LVQDataset, LVQFullView)) or (
+            isinstance(data, VectorDataset)
+            and data.dtype in (torch.float32, torch.bfloat16)))
 
 
 def greedy_search(graph: NeighborGraph,
@@ -159,7 +200,7 @@ def greedy_search(graph: NeighborGraph,
 
     Args:
       data: a ``VectorDataset`` (any element type), an ``SQDataset``, an
-        ``LVQDataset`` or an ``LVQFullView``.
+        ``LVQDataset``, an ``LVQFullView`` or a view with ``score_keys``.
       queries: (B, d_pad) tensor on the dataset's device (f32 or bf16
         scored as given by the beam-step kernels; cast to f32 elsewhere).
       entry_ids: (E,) or (B, E) int32 entry points seeded into the beam.
@@ -198,13 +239,13 @@ def greedy_search(graph: NeighborGraph,
     entry_ids = entry_ids.to(torch.int32)
     e = entry_ids.shape[1]
     q_norms = queries.float().square().sum(-1)
+    custom_score = getattr(data, "score_keys", None)
 
     def score(ids: torch.Tensor) -> torch.Tensor:
         """(B, K) ids -> (B, K) keys with +inf for invalid ids."""
-        vecs = data.get(ids.clamp_min(0))
-        keys = dist_ops.gathered_keys(distance, queries, vecs,
-                                      query_norms_sq=q_norms)
-        return torch.where((ids >= 0) & (ids < data.n), keys, inf)
+        if custom_score is not None:
+            return custom_score(distance, queries, q_norms, ids, _seed_keys)
+        return _seed_keys(data, distance, queries, q_norms, ids)
 
     # ---- seed the beam with the entry points --------------------------------
     entry_keys = topk_ops.mask_first_duplicates(score(entry_ids), entry_ids)

@@ -841,3 +841,38 @@ def test_native_loader_and_reference_layout_on_gpu(cuda, tmp_path):
     assert bs.beam_step.launches > before
     np.testing.assert_array_equal(got.ids, want.ids)
     np.testing.assert_array_equal(got.distances, want.distances)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["sharded", "dp"])
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+def test_parallel_search_on_gpu_matches_cpu(cuda, path, dtype):
+    """A search over 4 logical shards of cuda:0 (row-sharded views, or
+    query chunks) and over 4 of the CPU, on integer rows whose dot products
+    are exact in any order: identical ids and keys (the sharded f32 search
+    runs score_rows and beam_update, float16 gather_score_l2_partial; dp
+    runs beam_step or the scored route on every chunk)."""
+    from scalablevectorsearch_tpu_torch.core.graph import NeighborGraph
+    from scalablevectorsearch_tpu_torch.lib.datatypes import pad_matrix
+    from scalablevectorsearch_tpu_torch.parallel import mesh as mesh_mod
+    from scalablevectorsearch_tpu_torch.parallel import sharded
+    rng = np.random.default_rng(5)
+    x = rng.integers(-8, 8, size=(2000, 64)).astype(np.float32)
+    adj = rng.integers(0, 2000, size=(2000, 16)).astype(np.int32)
+    queries = pad_matrix(rng.integers(-8, 8, size=(64, 64)).astype(
+        np.float32))
+    fn = sharded.dp_greedy_search if path == "dp" else \
+        sharded.sharded_greedy_search
+    out = {}
+    for dev in ("cpu", "cuda:0"):
+        mesh = mesh_mod.make_mesh(4, "dp" if path == "dp" else "shard",
+                                  devices=[dev] * 4)
+        out[dev] = fn(mesh, NeighborGraph.from_array(adj, device=dev),
+                      svt.VectorDataset.from_array(x, dtype=dtype,
+                                                   device=dev),
+                      torch.from_numpy(queries).to(dev),
+                      torch.tensor([0], dtype=torch.int32, device=dev),
+                      window=32, capacity=32, max_iters=80, distance="l2")
+    assert out["cuda:0"].ids.is_cuda
+    assert torch.equal(out["cuda:0"].ids.cpu(), out["cpu"].ids)
+    assert torch.equal(out["cuda:0"].keys.cpu(), out["cpu"].keys)

@@ -46,6 +46,10 @@ PORT_MODULES = [
     "scalablevectorsearch_tpu_torch.utils.upgrader, "
     "scalablevectorsearch_tpu_torch.utils.svs_interop, "
     "scalablevectorsearch_tpu_torch.lib.native",
+    "scalablevectorsearch_tpu_torch.parallel, "
+    "scalablevectorsearch_tpu_torch.parallel.mesh, "
+    "scalablevectorsearch_tpu_torch.parallel.sharded, "
+    "scalablevectorsearch_tpu_torch.parallel.dynamic",
 ]
 
 

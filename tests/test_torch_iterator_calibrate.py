@@ -344,3 +344,36 @@ def test_unreachable_target_and_fractional_multiplier(built):
     params = svt.calibrate(vamana.index, queries, gt, 10, 0.9,
                            svt.CalibrationParameters(**one_axis()))
     assert vamana.index.search_parameters == params
+
+
+def test_int8_axis_skips_the_dynamic_index_as_jax_does(dynamic, pool):
+    """Only the static index declares ``query_upload_dtype``, in both
+    packages, so ``try_int8_uploads`` adds no int8 trials on the dynamic
+    index: both packages run the same trials, every search uploads in the
+    default dtype, and neither index is left with an upload dtype."""
+    j, t, _doomed, queries = dynamic
+    data, _ = pool
+    alive = np.nonzero(j.status[: j.data.n] == 1)[0]
+    gt = jexh(data[:400][alive], queries, 10).ids
+    gt = j.translator.to_external(alive)[gt]
+    seen, search = [], t.search
+
+    def spy(*args, **kwargs):
+        seen.append(getattr(t, "query_upload_dtype", None))
+        return search(*args, **kwargs)
+
+    t.search = spy
+    try:
+        kw = one_axis(try_int8_uploads=True)
+        want = jcal.calibrate_full(j, queries, gt, 10, 0.9,
+                                   jcal.CalibrationParameters(**kw))
+        got = tcal.calibrate_full(t, queries, gt, 10, 0.9,
+                                  tcal.CalibrationParameters(**kw))
+    finally:
+        del t.search
+    assert seen and set(seen) == {None}
+    assert got.trials == want.trials
+    assert got.query_upload_dtype is None and want.query_upload_dtype is None
+    assert not hasattr(t, "query_upload_dtype")
+    assert not hasattr(j, "query_upload_dtype")
+    assert same_buffer(got, want)

@@ -11,6 +11,9 @@ profiles with ``torch.profiler``:
     with bf16 packed rows at window 11, LVQ-8 packed and unpacked, and
     LVQ8x8 packed with its rerank, at window 20; float16 rows unpacked (the
     scored route) at window 11 and SQ-int8 rows unpacked at window 12;
+  - one ``sharded_greedy_search`` of the 5000 queries over the f32 graph
+    and rows in 8 logical shards of the card (``parallel/sharded.py``:
+    score_rows on every shard, then beam_update) at window 11;
   - one build round (B 2500, window 100, pool 300, pass-2 alpha) over the
     f32 rows, over LVQ-8 codes and over SQ-int8 codes (the scored route);
   - LeanVec (PCA to 64 dimensions, built with the same parameters): one
@@ -170,6 +173,19 @@ def main() -> int:
         profiled(f"serving {label} (scored route), window {window}",
                  lambda: scored.search(queries, 10))
         del scored
+
+    from scalablevectorsearch_tpu_torch.parallel import mesh as mesh_mod
+    from scalablevectorsearch_tpu_torch.parallel import sharded
+    mesh = mesh_mod.make_mesh(8, "shard", devices=["cuda:0"] * 8)
+    graph, rows = (sharded.shard_graph(index.graph, mesh),
+                   sharded.shard_dataset(index.data, mesh))
+    q = torch.from_numpy(queries).cuda()
+    entries = index._entry_sampler.select(index.distance, q)
+    profiled("sharded search, f32 rows in 8 logical shards, window 11",
+             lambda: sharded.sharded_greedy_search(
+                 mesh, graph, rows, q, entries, window=11, capacity=11,
+                 max_iters=smod.default_max_iters(11), distance=svt.L2))
+    del graph, rows
 
     b, window = 2500, params.window_size
     ids = torch.arange(b, dtype=torch.int32, device="cuda")
