@@ -209,8 +209,27 @@ Phases, one line of detail each (any failure exits non-zero):
      to_single_chip round trip identical); seconds per step and shard
      count, launches, peak device memory; then every kernel against its
      plain version at every call the phase made (step_shapes,
-     scored_shapes).
-Each path (6-14, 16-19) starts with every launch count at 0 and reads them at
+     scored_shapes);
+  20. examples (after 19, before 15): the port's six examples
+     (scalablevectorsearch_tpu_torch/examples) through their run(device=
+     "cuda") at the JAX examples' own sizes (10k-50k rows, uncut), their
+     own asserts holding, every printed recall held to data/golden/
+     torch_examples_reference.json (the JAX examples' printed numbers,
+     written by tools/make_torch_examples_golden.py) within EXAMPLES_TOL,
+     the dynamic rows within EXAMPLES_DYNAMIC_TOL and IVF at 2 probes
+     within EXAMPLES_FEW_PROBES_TOL; the calibrated window printed beside
+     JAX's, its recall >= 0.95; QPS and latency of the serving example
+     (host clock); then MultiMutableVamanaIndex over the main data's
+     first 20,000 rows, two vectors per label, through 1,000 adds, 250
+     deleted labels, consolidate and compact (label recall@10 >= 0.9
+     against the exact label ranking after every step, no deleted label,
+     no label twice, beam_step launching; a save / assemble round trip
+     searched identically); svt.Flat over the main rows (misses only ties
+     of the 10th distance; round trip identical); BatchIterator with
+     LinearSchedule over the main index, 32 queries x 5 pages; seconds per
+     example and part, peak device memory; then every kernel against its
+     plain version at every call the phase made.
+Each path (6-14, 16-20) starts with every launch count at 0 and reads them at
 its end.  The line before the last is the JSON summary of the five
 kernels (beam_step, beam_step_lvq, beam_update, score_rows,
 gather_score_l2_partial; each kernel's launches are the sum over the
@@ -230,6 +249,10 @@ instruction counts of both gather_distance libraries (cuobjdump).
     python3 chip_smoke.py --parallel-only
 
 runs phases 1, 2, 6 and 19 alone: the main path, then the parallel phase.
+
+    python3 chip_smoke.py --examples-only
+
+runs phases 1, 2, 6 and 20 alone: the main path, then the examples.
 """
 
 from __future__ import annotations
@@ -3245,9 +3268,12 @@ def scored_shapes():
             update, rows_fn, gather)
 
 
-def check_scored_shapes(path: str, seen: dict) -> None:
+def check_scored_shapes(path: str, seen: dict,
+                        expect=("beam_update", "score_rows",
+                                "gather_score_l2_partial")) -> None:
     """beam_update, score_rows and gather_score_l2_partial against their
-    plain versions at every call ``path`` made (:func:`scored_shapes`):
+    plain versions at every call ``path`` made (:func:`scored_shapes`),
+    each kernel of ``expect`` called at least once:
     beam_update on tied (grid) and real keys, identical outputs; the
     scoring kernels on exact (grid) inputs identical, on real inputs within
     rtol 1e-5 (atol 1e-5 of the values' scale).  Run after the path has
@@ -3302,7 +3328,7 @@ def check_scored_shapes(path: str, seen: dict) -> None:
                   gd.gather_score_l2_partial(table, ids, q),
                   gd.gather_score_l2_partial_plain(table, ids, q), grid)
     counts = {name: len(s) for name, s in seen.items()}
-    if not all(counts.values()) or failures:
+    if not all(counts[name] for name in expect) or failures:
         raise AssertionError(f"{path}: scored kernels vs plain at the path's "
                              f"shapes {counts}: {'; '.join(failures)}")
     log(f"{path}: beam_update, score_rows and gather_score_l2_partial match "
@@ -3658,6 +3684,296 @@ def phase_parallel(main_path: dict) -> dict:
     return launches
 
 
+EXAMPLES = ("vamana", "compression", "dynamic", "ivf", "serving",
+            "multichip")
+GOLDEN_EXAMPLES = os.path.join(HERE, "data", "golden",
+                               "torch_examples_reference.json")
+# the examples' recall rows against the JAX examples' (GOLDEN_EXAMPLES):
+# +-0.01 as the kinds gate; the dynamic rows +-0.02 (consolidate moves
+# recall by points, ROADMAP queue 3); IVF at 2 probes +-0.05 (its recall
+# there follows the k-means++ draws, which differ by design)
+EXAMPLES_TOL, EXAMPLES_DYNAMIC_TOL, EXAMPLES_FEW_PROBES_TOL = 0.01, 0.02, 0.05
+MULTI_ROWS, MULTI_ADD, MULTI_DELETE = 20_000, 1000, 250   # rows, labels
+LINEAR_QUERIES, LINEAR_PAGES = 32, 5
+
+
+def example_rows(name: str, out: dict, want: dict) -> list:
+    """(row, port's value, JAX example's value, tolerance) of one example's
+    gated numbers; a tolerance of 0 asks for equality."""
+    if name == "vamana":
+        return [(f"window {w}", out["recall"][w], r, EXAMPLES_TOL)
+                for w, r in want["recall"].items()]
+    if name == "compression":
+        return [(key, out[key], want[key], EXAMPLES_TOL)
+                for key in ("float32", "sq_int8", "lvq8", "leanvec")]
+    if name == "dynamic":
+        return [("initial size", out["initial_size"], want["initial_size"],
+                 0), ("size after add+delete", out["size_after_add_delete"],
+                      want["size_after_add_delete"], 0),
+                ("recall", out["recall"], want["recall"],
+                 EXAMPLES_DYNAMIC_TOL)]
+    if name == "ivf":
+        return [("clusters", out["clusters"], want["clusters"], 0)] + [
+            (f"n_probes {p}", out["recall"][p], r,
+             EXAMPLES_FEW_PROBES_TOL if p == "2" else EXAMPLES_TOL)
+            for p, r in want["recall"].items()] + [
+            ("LVQ postings + rerank", out["lvq_rerank"], want["lvq_rerank"],
+             EXAMPLES_TOL)]
+    if name == "serving":
+        return [("recall", out["recall"], want["recall"], EXAMPLES_TOL)]
+    if name == "multichip":
+        return [(key, out[key], want[key], EXAMPLES_TOL)
+                for key in ("flat", "ivf", "dp_vamana", "sharded_lvq8")] + [
+            ("sharded_dynamic", out["sharded_dynamic"],
+             want["sharded_dynamic"], EXAMPLES_DYNAMIC_TOL)]
+    raise ValueError(name)
+
+
+def examples_run(name: str, want: dict, card: str) -> list:
+    """One example's ``run(device="cuda")`` at the JAX example's sizes; its
+    own asserts hold inside; its numbers beside the JAX example's.  Returns
+    the rows outside their tolerance."""
+    import importlib
+    module = importlib.import_module(
+        f"scalablevectorsearch_tpu_torch.examples.example_{name}")
+    torch.cuda.reset_peak_memory_stats()
+    before = read_counts()
+    t0 = time.perf_counter()
+    out = module.run(device="cuda")
+    sync()
+    secs = time.perf_counter() - t0
+    launched = {k: n for k, n in launched_since(before).items() if n}
+    rows = example_rows(name, out, want)
+    # differences at the recalls' own resolution (hits / (10 queries)):
+    # a difference equal to the tolerance is within it
+    bad = [f"{name} {row} {got} vs {ref} (+-{tol})"
+           for row, got, ref, tol in rows if round(abs(got - ref), 6) > tol]
+    extra = ""
+    if name == "vamana":
+        extra = (f"; calibrated window {out['calibrated_window']} (JAX "
+                 f"{want['calibrated_window']}), its recall@10 "
+                 f"{out['calibrated_recall']:.4f}")
+        if out["calibrated_recall"] < 0.95:
+            bad.append(f"vamana calibrated recall {out['calibrated_recall']}")
+    elif name == "dynamic" and out["deleted_surfaced"]:
+        bad.append("dynamic: a deleted id surfaced after compact")
+    elif name == "ivf":
+        extra = f"; largest cluster {out['max_size']} (JAX {want['max_size']})"
+    elif name == "serving":
+        extra = (f"; blocking {out['qps_blocking']:.0f} QPS, pipelined "
+                 f"{out['qps_pipelined']:.0f} QPS (identical ids); batch "
+                 f"latency "
+                 f"({out['batch_queries']} queries) p50 {out['p50_ms']:.1f} "
+                 f"ms, p95 {out['p95_ms']:.1f} ms (host clock)")
+    elif name == "multichip":
+        extra = f"; mesh {out['devices']} devices ({out['mesh']})"
+    log(f"examples: {name} {secs:.1f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB: "
+        + ", ".join(f"{row} {got:.4f} (JAX {ref}, +-{tol})" if tol else
+                    f"{row} {got} (JAX {ref})" for row, got, ref, tol in rows)
+        + extra + f"; launches {launched} ({card})")
+    return bad
+
+
+def first_labels(labels: np.ndarray, k: int) -> np.ndarray:
+    """Each row's first ``k`` distinct labels, in order."""
+    out = np.full((labels.shape[0], k), -1, dtype=np.int64)
+    for r, row in enumerate(labels):
+        _, first = np.unique(row, return_index=True)
+        picked = row[np.sort(first)][:k]
+        out[r, :picked.size] = picked
+    return out
+
+
+def examples_multi_vector(main_path: dict, card: str) -> None:
+    """MultiMutableVamanaIndex over the main data's first MULTI_ROWS rows,
+    two vectors per label, the main path's build parameters, window
+    TOOLS_WINDOW: add MULTI_ADD rows (half as many labels), delete
+    MULTI_DELETE labels, consolidate, compact.  After the build and every
+    step: label recall@10 >= 0.9 against the exact label ranking over the
+    live vectors, no deleted label, no label twice in a row, beam_step
+    launching.  Then a save / assemble round trip with the same labels and
+    an identical search."""
+    import scalablevectorsearch_tpu_torch as svt
+    from scalablevectorsearch_tpu_torch.ops.kernels.beam_step import (
+        beam_step)
+    total = MULTI_ROWS + MULTI_ADD
+    rows = main_path["data"][:total]
+    labels = np.arange(total, dtype=np.int64) // 2
+    queries = main_path["queries"][:PAR_QUERIES]
+    live = np.arange(total) < MULTI_ROWS
+    gone = np.empty(0, dtype=np.int64)
+    rng = np.random.default_rng(12)
+    secs = {}
+    t0 = time.perf_counter()
+    index = svt.MultiMutableVamanaIndex(main_path_params(), rows[:MULTI_ROWS],
+                                        labels[:MULTI_ROWS], "l2")
+    sync()
+    secs["build"] = time.perf_counter() - t0
+    index.search_window_size = TOOLS_WINDOW
+
+    def check(step):
+        vids = np.nonzero(live)[0]
+        exact = svt.exhaustive_search(rows[vids], queries, 20).ids
+        want = first_labels(labels[vids][exact], 10)
+        before = beam_step.launches
+        res = index.search(queries, 10)
+        launched = beam_step.launches - before
+        got = res.ids
+        recall = float(np.mean([len(set(g) & set(w)) / 10
+                                for g, w in zip(got.tolist(),
+                                                want.tolist())]))
+        twice = sum(np.unique(g[g >= 0]).size != (g >= 0).sum() for g in got)
+        dead = int(np.isin(got, gone).sum())
+        log(f"examples: multi-vector {step}: {index.size} labels, "
+            f"{index.num_vectors} vectors, label recall@10 {recall:.4f} at "
+            f"window {TOOLS_WINDOW}; deleted labels returned {dead}, rows "
+            f"with a label twice {twice}; beam_step launches {launched}")
+        if recall < 0.9 or dead or twice or not launched:
+            raise AssertionError(f"examples: multi-vector {step}: recall "
+                                 f"{recall}, deleted {dead}, twice {twice}, "
+                                 f"launches {launched}")
+
+    def step(name, fn):
+        t1 = time.perf_counter()
+        fn()
+        sync()
+        secs[name] = time.perf_counter() - t1
+        check(name)
+
+    check("build")
+    live[MULTI_ROWS:] = True
+    step("add", lambda: index.add_points(rows[MULTI_ROWS:],
+                                         labels[MULTI_ROWS:]))
+    gone = rng.choice(np.unique(labels), size=MULTI_DELETE, replace=False)
+    live &= ~np.isin(labels, gone)
+    step("delete", lambda: index.delete_points(gone))
+    step("consolidate", index.consolidate)
+    step("compact", index.compact)
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        index.save(tmp)
+        loaded = svt.MultiMutableVamanaIndex.assemble(tmp)
+        secs["round trip"] = time.perf_counter() - t1
+        loaded.search_window_size = TOOLS_WINDOW
+        a, b = index.search(queries, 10), loaded.search(queries, 10)
+        if not (np.array_equal(index.all_labels(), loaded.all_labels())
+                and np.array_equal(a.ids, b.ids)
+                and np.array_equal(a.distances, b.distances)):
+            raise AssertionError("examples: multi-vector round trip differs")
+    log("examples: multi-vector seconds " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items()) + "; round trip: the same "
+        f"labels, identical ids and distances ({card})")
+
+
+def examples_flat(main_path: dict, card: str) -> None:
+    """svt.Flat over the main rows: the main queries' top-10 equal to
+    exhaustive_search's up to ties of the 10th distance, 256 queries'
+    distances against float64 on the host; a save / assemble round trip
+    searched identically."""
+    import scalablevectorsearch_tpu_torch as svt
+    data, queries, gt = (main_path[key] for key in ("data", "queries", "gt"))
+    t0 = time.perf_counter()
+    flat = svt.Flat.build(data, "l2")
+    res = flat.search(queries, 10)
+    search_s = time.perf_counter() - t0
+    ties = misses_are_ties(res, gt.ids, queries, lambda i: data[i],
+                           "examples flat")
+    host_distances(res, queries, lambda i: data[i], "examples flat")
+    with tempfile.TemporaryDirectory() as tmp:
+        flat.save(tmp)
+        loaded = svt.Flat.assemble(tmp)
+        again = loaded.search(queries, 10)
+        if not (np.array_equal(res.ids, again.ids)
+                and np.array_equal(res.distances, again.distances)):
+            raise AssertionError("examples: Flat round trip differs")
+    log(f"examples: Flat {flat.size} x {flat.dimensions}, build and "
+        f"{len(queries)} queries in {search_s:.3f} s: recall@10 "
+        f"{svt.k_recall_at_n(gt, res):.4f}, misses all ties of the 10th "
+        f"distance ({ties}); round trip identical ({card})")
+
+
+def examples_linear_schedule(main_path: dict, card: str) -> None:
+    """BatchIterator with LinearSchedule(main window, 10) over the main
+    index: LINEAR_QUERIES queries x LINEAR_PAGES pages of 10, disjoint and
+    nearest-first, beam_step launching on every page; coverage of the
+    exact top-50 reported."""
+    import scalablevectorsearch_tpu_torch as svt
+    index = main_path["index"].index
+    data, queries = main_path["data"], main_path["queries"]
+    schedule = svt.LinearSchedule(main_path["window"], 10)
+    exact = svt.exhaustive_search(data, queries[:LINEAR_QUERIES],
+                                  10 * LINEAR_PAGES).ids
+    cover = 0
+    t0 = time.perf_counter()
+    for qi in range(LINEAR_QUERIES):
+        it = svt.BatchIterator(index, queries[qi], batch_size=10,
+                               schedule=schedule)
+        got = []
+        for p in range(LINEAR_PAGES):
+            before = read_counts()
+            res = it.next()
+            ids = res.ids[0][res.ids[0] >= 0]
+            if not launched_since(before)["beam_step"] or \
+                    np.any(np.diff(res.distances[0][res.ids[0] >= 0]) < 0):
+                raise AssertionError(f"examples: linear schedule query {qi} "
+                                     f"page {p}: no beam_step launch or not "
+                                     f"nearest-first")
+            got.append(ids)
+        ids = np.concatenate(got)
+        if ids.size != 10 * LINEAR_PAGES or np.unique(ids).size != ids.size:
+            raise AssertionError(f"examples: linear schedule query {qi}: "
+                                 f"pages overlap or run short")
+        cover += len(set(ids.tolist()) & set(exact[qi].tolist()))
+    log(f"examples: BatchIterator with LinearSchedule("
+        f"{main_path['window']}, 10), {LINEAR_QUERIES} queries x "
+        f"{LINEAR_PAGES} pages of 10 in {time.perf_counter() - t0:.2f} s: "
+        f"disjoint, nearest-first, beam_step on every page; the pages cover "
+        f"{cover / (10 * LINEAR_PAGES * LINEAR_QUERIES):.4f} of the exact "
+        f"top-{10 * LINEAR_PAGES} ({card})")
+
+
+def phase_examples(main_path: dict) -> dict:
+    """The port's six examples at the JAX examples' sizes on the card, held
+    to GOLDEN_EXAMPLES; then the entry points no other phase drives: the
+    multi-vector index, Flat and BatchIterator with LinearSchedule.  Every
+    count starts at 0 here; every kernel call of the phase is then held to
+    its plain version.  Returns the phase's launches."""
+    card = card_line()
+    with open(GOLDEN_EXAMPLES) as f:
+        golden = json.load(f)["examples"]
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    peak, bad = 0, []
+    t0 = time.perf_counter()
+    with step_shapes() as steps, scored_shapes() as scored:
+        for name in EXAMPLES:
+            bad += examples_run(name, golden[name], card)
+            peak = max(peak, torch.cuda.max_memory_allocated())
+        for name, run in (
+                ("multi-vector", lambda: examples_multi_vector(main_path,
+                                                               card)),
+                ("flat", lambda: examples_flat(main_path, card)),
+                ("linear schedule",
+                 lambda: examples_linear_schedule(main_path, card))):
+            t1 = time.perf_counter()
+            run()
+            log(f"examples: {name} {time.perf_counter() - t1:.1f} s")
+            peak = max(peak, torch.cuda.max_memory_allocated())
+    launches = {name: n for name, n in read_counts().items() if n}
+    log(f"examples: {time.perf_counter() - t0:.1f} s; launches {launches}; "
+        f"peak device memory {peak / 2 ** 30:.2f} GiB ({card})")
+    if bad:
+        raise AssertionError("examples outside tolerance: " + "; ".join(bad))
+    missing = [name for name in ("beam_step", "beam_step_lvq", "beam_update",
+                                 "score_rows") if not launches.get(name)]
+    if missing:
+        raise AssertionError(f"examples: kernels not launched: {missing}")
+    check_step_shapes("examples", steps)
+    check_scored_shapes("examples", scored, ("beam_update", "score_rows"))
+    return launches
+
+
 def kernel_entry(name: str, replaces: str, by_path: dict, kern: dict,
                  shape: str, build_s: float,
                  source: str = "beam_step.cu") -> dict:
@@ -3686,7 +4002,8 @@ def main(argv: list) -> int:
     other_gather = None
     if kernels_only and argv[1:2] == ["--other-gather"] and len(argv) == 3:
         other_gather = argv[2]
-    elif argv and argv not in (["--kernels-only"], ["--parallel-only"]):
+    elif argv and argv not in (["--kernels-only"], ["--parallel-only"],
+                               ["--examples-only"]):
         raise SystemExit(f"chip_smoke: unknown arguments {argv}")
     device = phase_device()
     build_s, other_lib = phase_build(other_gather)
@@ -3694,6 +4011,12 @@ def main(argv: list) -> int:
         # the main path and the parallel phase only, for work on the
         # multi-device package
         log(json.dumps({"parallel": phase_parallel(phase_main_path())}))
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
+    if argv == ["--examples-only"]:
+        # the main path and the examples phase only, for work on the
+        # examples
+        log(json.dumps({"examples": phase_examples(phase_main_path())}))
         print(json.dumps({"ok": True, "device": device}))
         return 0
     kern = phase_kernels()
@@ -3739,6 +4062,7 @@ def main(argv: list) -> int:
     by_path["tools"] = tools["launches"]
     check_step_shapes("tools", seen)
     by_path["parallel"] = phase_parallel(main_path)
+    by_path["examples"] = phase_examples(main_path)
     del main_path                       # frees the 100k index
     phase_golden(tools["golden"])
     log(f"paths: {time.perf_counter() - t0:.1f} s from the main path's "

@@ -876,3 +876,50 @@ def test_parallel_search_on_gpu_matches_cpu(cuda, path, dtype):
     assert out["cuda:0"].ids.is_cuda
     assert torch.equal(out["cuda:0"].ids.cpu(), out["cpu"].ids)
     assert torch.equal(out["cuda:0"].keys.cpu(), out["cpu"].keys)
+
+
+# small sizes of the examples (scalablevectorsearch_tpu_torch/examples)
+EXAMPLE_SIZES = {
+    "vamana": dict(n=800, n_queries=50, dim=32),
+    "compression": dict(n=600, n_queries=40),
+    "dynamic": dict(n=900, n_queries=50, dim=32, n_build=600, n_add=200,
+                    n_delete=100),
+    "ivf": dict(n=3000, n_queries=100, dim=32, num_centroids=48,
+                minibatch_size=1000),
+    "serving": dict(n=1200, n_queries=100, dim=32, reps=2),
+    "multichip": dict(n=2000, n_queries=40, dim=32, num_centroids=16, m=800,
+                      n_add=100, n_delete=50),
+}
+
+
+def example_recalls(out: dict) -> dict:
+    """The recall numbers of an example's ``run()`` result, flattened."""
+    flat = {}
+    for key, value in out.items():
+        if isinstance(value, dict):
+            flat.update({f"{key} {k}": v for k, v in value.items()
+                         if isinstance(v, float)})
+        elif isinstance(value, float) and not key.startswith(("qps", "p5",
+                                                              "p9")):
+            flat[key] = value
+    return flat
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(EXAMPLE_SIZES))
+def test_example_on_gpu_matches_cpu(cuda, name):
+    """Each example's ``run(device="cuda")`` at a small size: its own
+    asserts hold, a kernel of the repo launches (IVF runs none), and its
+    recall numbers are within 0.05 of the same run on the CPU (f32
+    rounding and the k-means++ draws differ)."""
+    import importlib
+    from chip_smoke import read_counts, zero_counts
+    module = importlib.import_module(
+        f"scalablevectorsearch_tpu_torch.examples.example_{name}")
+    zero_counts()
+    got = example_recalls(module.run(device="cuda", **EXAMPLE_SIZES[name]))
+    launched = sum(read_counts().values())
+    want = example_recalls(module.run(device="cpu", **EXAMPLE_SIZES[name]))
+    assert got.keys() == want.keys()
+    assert all(abs(got[k] - want[k]) <= 0.05 for k in got), (got, want)
+    assert launched > 0 or name == "ivf"

@@ -15,6 +15,9 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+EXAMPLES = ("vamana", "compression", "dynamic", "ivf", "serving",
+            "multichip")
+
 # the package itself, and the modules its __init__ does not import
 PORT_MODULES = [
     "scalablevectorsearch_tpu_torch",
@@ -50,6 +53,9 @@ PORT_MODULES = [
     "scalablevectorsearch_tpu_torch.parallel.mesh, "
     "scalablevectorsearch_tpu_torch.parallel.sharded, "
     "scalablevectorsearch_tpu_torch.parallel.dynamic",
+    "scalablevectorsearch_tpu_torch.examples, "
+    + ", ".join(f"scalablevectorsearch_tpu_torch.examples.example_{name}"
+                for name in EXAMPLES),
 ]
 
 
@@ -72,3 +78,16 @@ def test_default_device_is_cuda_without_fallback():
         pytest.skip("a CUDA device is present")
     with pytest.raises((RuntimeError, AssertionError)):
         VectorDataset.from_array([[1.0, 2.0]])
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_needs_a_card_by_default(name):
+    """An example's ``run()`` with no device argument runs on the GPU;
+    without one it raises instead of running on the CPU."""
+    import importlib
+    module = importlib.import_module(
+        f"scalablevectorsearch_tpu_torch.examples.example_{name}")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises((RuntimeError, AssertionError)):
+        module.run()
