@@ -173,13 +173,11 @@ Phases, one line of detail each (any failure exits non-zero):
      distances); copies of the three data/legacy checkpoints upgraded
      and assembled onto the card (all current, LVQ decoding within 1e-5
      of a fresh compress); the 1M x 128 job data as .fvecs read by the
-     native loader and by NumPy (identical; both rates); data/jobs/
-     ivf_1m.json unchanged through the CLI in a child process (the JAX
-     runner's keys, recall@10 >= 0.9 at some n_probes; build seconds,
-     recall, QPS, p50 / p99 per n_probes); vamana_dynamic (two cycles,
-     recall@10 >= 0.9 after each at the job's window), vamana_iterator
-     (recall >= 0.95) and inverted_search (>= 0.9 at some epsilon) at
-     20,000 x 128; the three golden generators at the settings of their
+     native loader and by NumPy (identical; both rates); vamana_dynamic
+     (two cycles, recall@10 >= 0.9 after each at the job's window),
+     vamana_iterator (recall >= 0.95) and inverted_search (>= 0.9 at some
+     epsilon) at 20,000 x 128 (data/jobs/ivf_10m.json through the CLI is
+     in 21); the three golden generators at the settings of their
      reference files; then beam_step against its plain version at every
      call the phase made, as in 12;
   19. parallel (after 18, before 15), the multi-device package over
@@ -229,7 +227,23 @@ Phases, one line of detail each (any failure exits non-zero):
      LinearSchedule over the main index, 32 queries x 5 pages; seconds per
      example and part, peak device memory; then every kernel against its
      plain version at every call the phase made.
-Each path (6-14, 16-20) starts with every launch count at 0 and reads them at
+  21. scale_10m (after 20, before 15): data/jobs/ivf_10m.json unchanged
+     (10M x 96, hierarchical, K 8192) through the CLI in a child process
+     (the JAX runner's keys, recall@10 >= 0.9 at some n_probes; build
+     seconds, recall, QPS, p50 / p99 per n_probes; the layout the child
+     logs, its sampled peak device memory); a 10M x 96 f32 table (padded
+     to 128 columns) made on the card from a seeded generator, and its
+     float16 copy, each served by greedy_search (B 2000, windows 12 and
+     48) over a random 32-regular graph: the route's kernels (beam_step;
+     gather_score_l2_partial and beam_update) on real gathers; then, over
+     that table and over the main path's 100k table, PyTorch's row gather
+     of the search loop, beam_step on the gathered rows (C 12 and 48, K
+     128) and gather_score_l2_partial (f32 and float16) held to their
+     plain versions (keys rtol 1e-5, atol 1e-5 of the norms' scale; ids
+     identical but proven near-ties, at most 0.1% of rows) and timed as
+     kernel_ms times, beside their bounds over the bytes read (128
+     columns) and the live bytes (96).
+Each path (6-14, 16-21) starts with every launch count at 0 and reads them at
 its end.  The line before the last is the JSON summary of the five
 kernels (beam_step, beam_step_lvq, beam_update, score_rows,
 gather_score_l2_partial; each kernel's launches are the sum over the
@@ -253,6 +267,10 @@ runs phases 1, 2, 6 and 19 alone: the main path, then the parallel phase.
     python3 chip_smoke.py --examples-only
 
 runs phases 1, 2, 6 and 20 alone: the main path, then the examples.
+
+    python3 chip_smoke.py --scale-10m-only
+
+runs phases 1, 2, 6 and 21 alone: the main path, then the 10M phase.
 """
 
 from __future__ import annotations
@@ -686,19 +704,24 @@ def make_lvq_case(rng, shape, n_dead: int, grid: bool):
     return [beam_keys, beam_packed, *rows[:4], cand_ids, rows[4]]
 
 
-def step_bound(args, m: int, flops_per_value: int) -> dict:
+def step_bound(args, m: int, flops_per_value: int, live=None) -> dict:
     """Least time for one beam step on these inputs: every input read once
     and the five outputs written once, over the HBM peak, against the f32
     operations on the row block over the f32 peak.  The rows of invalid
-    candidates (id -1) do not count: no output depends on them."""
-    beam_keys, rows, cand_ids = args[0], args[2], args[-2]
+    candidates (id -1) do not count: no output depends on them.  With
+    ``live``, only the first ``live`` columns of the rows and the queries
+    count: the bytes that carry data where the rest is padding."""
+    beam_keys, rows, cand_ids, queries = args[0], args[2], args[-2], args[-1]
     b, c = beam_keys.shape
     k = rows.shape[1]
     dead_rows = int((cand_ids < 0).sum())
     row_values = rows.shape[2]
+    live = row_values if live is None else live
+    padding = (row_values - live) * ((b * k - dead_rows) * rows.element_size()
+                                     + b * queries.element_size())
     return bound_of(nbytes(*args) + b * (c * 8 + m * 4 + k * 8)
-                    - dead_rows * row_values * rows.element_size(),
-                    flops_per_value * (b * k - dead_rows) * row_values)
+                    - dead_rows * row_values * rows.element_size() - padding,
+                    flops_per_value * (b * k - dead_rows) * live)
 
 
 def unexplained_rows(args, got, want, rows_off, window: int,
@@ -770,14 +793,26 @@ def check_step(rng, label: str, shape, vdt, metric: int,
     real[2] = real[2].to(vdt)
     got = bs.beam_step(*real, **kw)
     want = bs.beam_step_plain(*real, **kw)
+    return compare_step(name, real, got, want, window, tol, failures)
+
+
+def compare_step(name: str, real: list, got, want, window: int, tol: float,
+                 failures: list, atol=None) -> tuple:
+    """beam_step's outputs ``got`` against the plain version's ``want`` on
+    real-valued inputs ``real``: keys within rtol ``tol`` and atol
+    ``atol`` (``tol`` by default), the pool ids identical, the beam ids
+    and pops identical except at near-ties that ``unexplained_rows``
+    proves.  Appends what fails to ``failures``; returns (max_abs_err,
+    rows off the plain ids or pops, rows)."""
+    atol = tol if atol is None else atol
     gk, gp, gpop, gpk, gpi = got
     wk, wp, wpop, wpk, wpi = want
     fin = torch.isfinite(wk)
     if not torch.equal(fin, torch.isfinite(gk)):
         failures.append(f"{name} inf slots")
     err = float((gk[fin] - wk[fin]).abs().max()) if bool(fin.any()) else 0.0
-    if not torch.allclose(gk, wk, rtol=tol, atol=tol) or \
-            not torch.allclose(gpk, wpk, rtol=tol, atol=tol) \
+    if not torch.allclose(gk, wk, rtol=tol, atol=atol) or \
+            not torch.allclose(gpk, wpk, rtol=tol, atol=atol) \
             or not torch.equal(gpi, wpi):
         failures.append(f"{name} real keys/pool")
     rows_off = ((gp != wp) & fin).any(1) | (gpop != wpop).any(1)
@@ -2932,53 +2967,79 @@ def tools_runner_main_index(main_path: dict, tmp: str) -> None:
                              f"the main path's {want}, {launches} launches")
 
 
-def tools_cli_1m(tmp: str) -> None:
-    """data/jobs/ivf_1m.json, unchanged, through the port's CLI in a child
+def ivf_cli_job(name: str, tmp: str) -> dict:
+    """data/jobs/<name>.json, unchanged, through the port's CLI in a child
     process on the card: the JAX runner's keys, recall@10 >= 0.9 at some
-    n_probes."""
-    job_file = os.path.join(HERE, "data", "jobs", "ivf_1m.json")
+    n_probes.  The child logs the IVF layout (SVS_LOG_LEVEL=info): the
+    probe units exceed K where the auto skew cap chunked large clusters.
+    Device memory in use on the card is sampled every 0.2 s while the
+    child runs; its peak less what was in use before is the child's.
+    Returns the result, the layout's log line and the peaks."""
+    import resource
+    import threading
+    job_file = os.path.join(HERE, "data", "jobs", f"{name}.json")
     with open(job_file) as f:
         spec = json.load(f)
     n, dim = spec["synthetic"]["n"], spec["synthetic"]["dim"]
     rows = n * dim * 4
     # the layout holds max(4 n, 5M) rows at most before the auto cap
     # (2x the mean posting) applies: index/ivf/index.py::_pack_layout_host
-    bound = max(4 * n, 5_000_000) * dim * 4
+    bound = max(4 * n, 5_000_000) * 128 * 4
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
-    log(f"tools: ivf_1m: {n} x {dim} f32 rows {rows} bytes; the padded "
-        f"layout at most {bound} bytes; {free} of {total} bytes free on the "
-        f"card")
-    out = os.path.join(tmp, "ivf_1m_result.json")
+    log(f"{name}: {n} x {dim} f32 rows {rows} bytes; the padded layout at "
+        f"most {bound} bytes; {free} of {total} bytes free on the card")
+    out = os.path.join(tmp, f"{name}_result.json")
+    lowest, done = [free], threading.Event()
+
+    def sample():
+        while not done.wait(0.2):
+            lowest[0] = min(lowest[0], torch.cuda.mem_get_info()[0])
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "scalablevectorsearch_tpu_torch.benchmark",
-         job_file, "-o", out], cwd=HERE, capture_output=True, text=True,
-        timeout=900, check=False)
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "scalablevectorsearch_tpu_torch.benchmark",
+             job_file, "-o", out], cwd=HERE, capture_output=True, text=True,
+            timeout=900, check=False,
+            env={**os.environ, "SVS_LOG_LEVEL": "info"})
+    finally:
+        done.set()
+        sampler.join()
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise AssertionError(f"ivf_1m CLI rc {proc.returncode}:\n"
+        raise AssertionError(f"{name} CLI rc {proc.returncode}:\n"
                              f"{proc.stderr[-4000:]}")
     with open(out) as f:
         (res,) = json.load(f)
+    layout = [line.split("] ")[-1] for line in proc.stderr.splitlines()
+              if "ivf assemble:" in line]
     bad_keys = set(res) ^ IVF_SEARCH_KEYS
     for c in res["configs"]:
         bad_keys |= (set(c) ^ IVF_CONFIG_KEYS) | (set(c["latency"])
                                                   ^ LATENCY_KEYS)
-        log(f"tools: ivf_1m n_probes {c['n_probes']}: recall@10 "
-            f"{c['recall']}, {c['qps']} QPS (host clock), p50 "
-            f"{c['latency']['p50_us']} us p99 {c['latency']['p99_us']} us "
+        log(f"{name} n_probes {c['n_probes']}: recall@10 {c['recall']}, "
+            f"{c['qps']} QPS (host clock), p50 {c['latency']['p50_us']} us "
+            f"p99 {c['latency']['p99_us']} us "
             f"({c['latency']['n_samples']} batches of "
             f"{c['latency']['batch_queries']})")
     best = max(c["recall"] for c in res["configs"])
-    log(f"tools: ivf_1m through the CLI: build {res['build_time_s']} s, "
-        f"job {res['wall_time_s']} s, process {wall:.1f} s; best recall@10 "
-        f"{best}")
+    peak = free - lowest[0]
+    host = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss * 1024
+    log(f"{name} through the CLI: build {res['build_time_s']} s, job "
+        f"{res['wall_time_s']} s, process {wall:.1f} s; best recall@10 "
+        f"{best}; {layout}; peak device memory of the child {peak} bytes "
+        f"(sampled), peak host memory of a child {host} bytes "
+        f"({card_line()})")
     if bad_keys:
-        raise AssertionError(f"ivf_1m output keys differ from the JAX "
+        raise AssertionError(f"{name} output keys differ from the JAX "
                              f"runner's: {sorted(bad_keys)}")
     if best < 0.9:
-        raise AssertionError(f"ivf_1m: no n_probes reached recall@10 0.9")
+        raise AssertionError(f"{name}: no n_probes reached recall@10 0.9")
+    return {"result": res, "layout": layout, "peak_device_bytes": peak,
+            "peak_host_bytes": host, "process_s": wall}
 
 
 def tools_small_jobs(device) -> None:
@@ -3192,9 +3253,9 @@ def tools_native(tmp: str) -> None:
 
 
 def phase_tools(main_path: dict) -> dict:
-    """The runner over the saved main index, the 1M IVF job through the
-    CLI, the smaller Vamana jobs, the golden generators, the
-    reference-layout round trip, the upgrader and the native loader.
+    """The runner over the saved main index, the smaller Vamana jobs, the
+    golden generators, the reference-layout round trip, the upgrader and
+    the native loader.
     Every count starts at 0 here.  Returns the phase's launches and the
     generated golden rows."""
     from scalablevectorsearch_tpu_torch.index.vamana import search as smod
@@ -3215,7 +3276,6 @@ def phase_tools(main_path: dict) -> dict:
         tools_interop(main_path, tmp)
         tools_upgrader(tmp, live.data.device)
         tools_native(tmp)
-        tools_cli_1m(tmp)
         tools_small_jobs(live.data.device)
         generated = tools_golden_generators(tmp, live.data.device)
     launches = {name: n for name, n in read_counts().items() if n}
@@ -3974,6 +4034,238 @@ def phase_examples(main_path: dict) -> dict:
     return launches
 
 
+# scale_10m phase (21): data/jobs/ivf_10m.json through the CLI, then the
+# serving step over a 10M x 96 f32 table (padded to 128 columns) at the 10M
+# serving shapes: B 2000 queries, beams of C 12 and 48, K = pop 4 x R 32
+# candidates; each timing beside the same over the main path's 100k table
+SCALE_ROWS, SCALE_DIM, SCALE_SEED = 10_000_000, 96, 13
+SCALE_B, SCALE_K, SCALE_M, SCALE_R = 2000, 128, 4, 32
+SCALE_WINDOWS = (12, 48)
+SCALE_ID_SETS = 3              # id sets rotated by the timings
+
+
+def scale_case(gen, table, n_rows: int, live: int, c: int) -> list:
+    """beam_step inputs over ``table`` (rows < ``n_rows``, ``live`` of its
+    columns non-zero): C distinct beam ids per query with their true L2
+    keys, sorted, half visited and up to a third of the slots empty; K
+    candidate ids over all the rows, 20% invalid, gathered as the search
+    loop gathers them; queries are table rows plus noise, zero in the dead
+    lanes."""
+    from scalablevectorsearch_tpu_torch.ops.kernels import beam_step as bs
+    b, k, dev = SCALE_B, SCALE_K, "cuda"
+    beam_ids = (torch.randint(0, n_rows - c, (b, 1), generator=gen,
+                              device=dev)
+                + torch.arange(c, device=dev)).to(torch.int32)
+    queries = table[torch.randint(0, n_rows, (b,), generator=gen,
+                                  device=dev)].clone()
+    queries[:, :live] += 0.3 * torch.randn((b, live), generator=gen,
+                                           device=dev)
+    keys = bs._score(table[beam_ids.long()], queries, 0)
+    keys, order = torch.sort(keys, 1)
+    beam_ids = torch.gather(beam_ids, 1, order)
+    vis = (torch.rand((b, c), generator=gen, device=dev) < 0.5).to(
+        torch.int32)
+    n_empty = torch.randint(0, c // 3 + 1, (b, 1), generator=gen, device=dev)
+    empty = torch.arange(c, device=dev)[None, :] >= c - n_empty
+    keys = torch.where(empty, float("inf"), keys)
+    packed = torch.where(empty, -1, beam_ids | (vis << 30)).to(torch.int32)
+    cand = torch.randint(0, n_rows, (b, k), generator=gen, device=dev).to(
+        torch.int32)
+    cand[torch.rand((b, k), generator=gen, device=dev) < 0.2] = -1
+    rows = table[cand.clamp_min(0).long()]
+    return [keys.contiguous(), packed, rows, cand, queries.contiguous()]
+
+
+def scale_timings(label: str, gen, table, n_rows: int, live: int,
+                  failures: list, card: str) -> dict:
+    """Over one table: PyTorch's row gather of the search loop, beam_step
+    on the gathered rows at each of SCALE_WINDOWS and
+    gather_score_l2_partial over the table in f32 and float16, each held
+    to its plain version and timed by :func:`kernel_ms`'s method (the
+    gather through the same windows, its kernels in place of a C entry
+    point); bounds over the bytes read and over the live bytes."""
+    from scalablevectorsearch_tpu_torch.ops.kernels import beam_step as bs
+    from scalablevectorsearch_tpu_torch.ops.kernels import (
+        gather_distance as gd)
+    out = {}
+    d = table.shape[1]
+    es = table.element_size()
+    id_sets = [torch.randint(0, n_rows, (SCALE_B, SCALE_K), generator=gen,
+                             device="cuda", dtype=torch.int32)
+               for _ in range(SCALE_ID_SETS)]
+    n_unique = int(torch.unique(id_sets[0]).numel())
+    rows = SCALE_B * SCALE_K
+    t = kernel_ms(lambda tab, ids: (tab[ids], 0)[1],
+                  [[table, ids] for ids in id_sets])
+    t["bounds"] = {
+        f"read {d}": bound_of(n_unique * d * es + rows * (d * es + 4), 0),
+        f"live {live}": bound_of(n_unique * live * es
+                                 + rows * (live * es + 4), 0)}
+    out["gather"] = t
+    log(f"scale_10m: {label} row gather (B, K) = ({SCALE_B}, {SCALE_K}) "
+        f"f32 rows of {d}: device {t['ms']:.4f} ms (profiler "
+        f"{t['profiler_ms']:.4f}); bound {t['bounds']} ({card})")
+    for window in SCALE_WINDOWS:
+        kw = dict(metric=0, window=window, m=SCALE_M)
+        args = scale_case(gen, table, n_rows, live, window)
+        got = bs.beam_step(*args, **kw)
+        want = bs.beam_step_plain(*args, **kw)
+        torch.cuda.synchronize()
+        # L2 keys are ||q||^2 - 2<q, x> + ||x||^2: their rounding follows
+        # the norms, not the key (the main rows' norms are ~1e4), so atol
+        # is 1e-5 of the norms' scale, as the scoring kernels are held
+        norms = float(args[4].square().sum(-1).max()
+                      + args[2].square().sum(-1).max())
+        err, off, n = compare_step(f"scale_10m {label} C {window}", args,
+                                   got, want, window, 1e-5, failures,
+                                   atol=1e-5 * norms)
+        if off > 1e-3 * n:
+            failures.append(f"scale_10m {label} C {window}: {off} near-tie "
+                            f"rows of {n}")
+        t = time_raw(bs._kernel_entry("svt_beam_step"), args,
+                     lambda a: bs._outputs(a[0], a[2].shape[1], SCALE_M),
+                     lambda a, o: bs.beam_step_args(*a, o, **kw))
+        t["plain_ms"] = median_ms(lambda: bs.beam_step_plain(*args, **kw))
+        t["max_abs_err"], t["near_tie_rows"] = err, off
+        t["bounds"] = {f"read {d}": step_bound(args, SCALE_M, 4),
+                       f"live {live}": step_bound(args, SCALE_M, 4, live)}
+        out[f"beam_step_c{window}"] = t
+        log(f"scale_10m: {label} beam_step B,C,K,d={SCALE_B},{window},"
+            f"{SCALE_K},{d} f32 L2: device {t['ms']:.4f} ms (profiler "
+            f"{t['profiler_ms']:.4f}), plain {t['plain_ms']:.4f} ms; "
+            f"max_abs_err {err:.3g}, {off} near-tie rows of {n}; bound "
+            f"{t['bounds']} ({card})")
+    q_all = torch.zeros((SCALE_B, d), device="cuda")
+    q_all[:, :live] = torch.randn((SCALE_B, live), generator=gen,
+                                  device="cuda")
+    for name, tab in (("f32", table), ("float16", table.half())):
+        ids = id_sets[0].clone()
+        ids[::2, SCALE_K // 2:] = ids[::2, :SCALE_K // 2]   # repeats
+        got = gd.gather_score_l2_partial(tab, ids, q_all)
+        want = gd.gather_score_l2_partial_plain(tab, ids, q_all)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=1e-5,
+                              atol=1e-5 * float(want.abs().max())):
+            failures.append(f"scale_10m {label} gather_score_l2_partial "
+                            f"{name}: {err:.3g}")
+        sets = [[tab, i, q_all] for i in id_sets]
+        outs = [torch.empty((SCALE_B, SCALE_K), device="cuda")
+                for _ in sets]
+        t = kernel_ms(gd._kernel_entry("svt_gather_score_l2_partial"),
+                      [gd.gather_score_l2_partial_args(*a, o)
+                       for a, o in zip(sets, outs)])
+        t["plain_ms"] = median_ms(
+            lambda: gd.gather_score_l2_partial_plain(tab, id_sets[0],
+                                                     q_all))
+        t["max_abs_err"] = err
+        tes = tab.element_size()
+        t["bounds"] = {
+            f"read {d}": bound_of(n_unique * d * tes + rows * 8
+                                  + SCALE_B * d * 4, 4 * rows * d),
+            f"live {live}": bound_of(n_unique * live * tes + rows * 8
+                                     + SCALE_B * live * 4, 4 * rows * live)}
+        out[f"gather_score_l2_partial_{name}"] = t
+        log(f"scale_10m: {label} gather_score_l2_partial {name} table, ids "
+            f"({SCALE_B}, {SCALE_K}) ({n_unique} distinct): device "
+            f"{t['ms']:.4f} ms (profiler {t['profiler_ms']:.4f}), plain "
+            f"{t['plain_ms']:.4f} ms; max_abs_err {err:.3g}; bound "
+            f"{t['bounds']} ({card})")
+        del tab
+    return out
+
+
+def scale_search(data, gen, label: str, window: int) -> None:
+    """One greedy_search over ``data`` as the serving loop runs it (B
+    SCALE_B, pop 4, tail fraction 4) on a random R-regular graph over its
+    rows: the route's kernels on the 10M table's real gathers."""
+    from scalablevectorsearch_tpu_torch.core.graph import NeighborGraph
+    from scalablevectorsearch_tpu_torch.index.vamana import search as smod
+    from scalablevectorsearch_tpu_torch.ops import distance as dist_ops
+    n = data.n
+    graph = NeighborGraph(
+        adjacency=torch.randint(0, n, (data.capacity, SCALE_R),
+                                generator=gen, device="cuda",
+                                dtype=torch.int32),
+        degrees=torch.full((data.capacity,), SCALE_R, dtype=torch.int32,
+                           device="cuda"), n=n, max_degree=SCALE_R)
+    q = data.get_f32(torch.randint(0, n, (SCALE_B,), generator=gen,
+                                   device="cuda"))
+    entries = torch.randint(0, n, (SCALE_B, 1), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    before = read_counts()
+    t0 = time.perf_counter()
+    out = smod.greedy_search(graph, data, q, entries, window=window,
+                             capacity=window,
+                             max_iters=smod.default_max_iters(window),
+                             distance=dist_ops.DistanceType.L2,
+                             tail_frac=4)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in launched_since(before).items() if v}
+    log(f"scale_10m: greedy_search over the 10M {label} table at window "
+        f"{window}, B {SCALE_B}: {time.perf_counter() - t0:.3f} s; "
+        f"launches {launched}")
+    if not bool((out.ids[:, 0] >= 0).all()):
+        raise AssertionError(f"scale_10m {label} search: empty beams")
+
+
+def phase_scale_10m(main_path: dict) -> dict:
+    """data/jobs/ivf_10m.json through the CLI (:func:`ivf_cli_job`), then
+    the serving step over a 10M-row table made on the card from a seeded
+    generator: a greedy_search over its f32 rows (beam_step) and over its
+    float16 copy (gather_score_l2_partial, beam_update), whose launches are
+    the phase's; then the kernels held to their plain versions and timed
+    at the 10M serving shapes over it and over the main path's 100k
+    table.  Every count starts at 0 here.  Returns the phase's launches."""
+    from scalablevectorsearch_tpu_torch.core.data import VectorDataset
+    card = card_line()
+    zero_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = ivf_cli_job("ivf_10m", tmp)
+    t1 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SCALE_SEED)
+    base = torch.randn((SCALE_ROWS, SCALE_DIM), generator=gen, device="cuda")
+    f32 = VectorDataset.from_array(base, device="cuda")
+    f16 = VectorDataset.from_array(base, dtype=torch.float16, device="cuda")
+    del base
+    for window in SCALE_WINDOWS:
+        scale_search(f32, gen, "f32", window)
+        scale_search(f16, gen, "float16", window)
+    del f16
+    launches = {name: n for name, n in read_counts().items() if n}
+    t2 = time.perf_counter()
+    failures = []
+    main_rows = main_path["index"].index.data.vectors
+    timings = {
+        "10M": scale_timings("10M", gen, f32.vectors, SCALE_ROWS,
+                             SCALE_DIM, failures, card),
+        "100k": scale_timings("100k", gen, main_rows,
+                              main_path["index"].index.data.n,
+                              main_rows.shape[1], failures, card)}
+    peak = torch.cuda.max_memory_allocated()
+    del f32
+    torch.cuda.empty_cache()
+    log(f"scale_10m: {time.perf_counter() - t0:.1f} s (CLI {t1 - t0:.1f}, "
+        f"searches {t2 - t1:.1f}, kernels {time.perf_counter() - t2:.1f}); "
+        f"launches {launches}; peak device memory {peak / 2 ** 30:.2f} GiB "
+        f"outside the child ({card})")
+    log(json.dumps({"scale_10m": {"cli": {k: v for k, v in cli.items()
+                                          if k != "result"},
+                                  "timings": timings}}))
+    if failures:
+        raise AssertionError("scale_10m kernels vs plain: "
+                             + "; ".join(failures))
+    missing = [name for name in ("beam_step", "beam_update",
+                                 "gather_score_l2_partial")
+               if not launches.get(name)]
+    if missing:
+        raise AssertionError(f"scale_10m: kernels not launched: {missing}")
+    return launches
+
+
 def kernel_entry(name: str, replaces: str, by_path: dict, kern: dict,
                  shape: str, build_s: float,
                  source: str = "beam_step.cu") -> dict:
@@ -4003,7 +4295,7 @@ def main(argv: list) -> int:
     if kernels_only and argv[1:2] == ["--other-gather"] and len(argv) == 3:
         other_gather = argv[2]
     elif argv and argv not in (["--kernels-only"], ["--parallel-only"],
-                               ["--examples-only"]):
+                               ["--examples-only"], ["--scale-10m-only"]):
         raise SystemExit(f"chip_smoke: unknown arguments {argv}")
     device = phase_device()
     build_s, other_lib = phase_build(other_gather)
@@ -4017,6 +4309,11 @@ def main(argv: list) -> int:
         # the main path and the examples phase only, for work on the
         # examples
         log(json.dumps({"examples": phase_examples(phase_main_path())}))
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
+    if argv == ["--scale-10m-only"]:
+        # the main path and the 10M phase only, for work on the 10M scale
+        log(json.dumps({"scale_10m": phase_scale_10m(phase_main_path())}))
         print(json.dumps({"ok": True, "device": device}))
         return 0
     kern = phase_kernels()
@@ -4063,6 +4360,7 @@ def main(argv: list) -> int:
     check_step_shapes("tools", seen)
     by_path["parallel"] = phase_parallel(main_path)
     by_path["examples"] = phase_examples(main_path)
+    by_path["scale_10m"] = phase_scale_10m(main_path)
     del main_path                       # frees the 100k index
     phase_golden(tools["golden"])
     log(f"paths: {time.perf_counter() - t0:.1f} s from the main path's "

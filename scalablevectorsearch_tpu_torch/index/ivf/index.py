@@ -43,6 +43,7 @@ import torch
 from ...core.data import VectorDataset, save_vectors_host
 from ...core.query_result import QueryResult
 from ...lib import datatypes as dt
+from ...lib import logging as svs_logging
 from ...lib import saveload
 from ...ops import distance as dist_ops
 from ...ops import topk as topk_ops
@@ -419,10 +420,9 @@ class IVFIndex:
         reordered = _poison_padding(reordered, ids_padded)
         rerank_data = VectorDataset.from_array(x, device=device) \
             if rerank else None
-        logger = kwargs.get("logger")
-        if logger is not None:
-            logger.info("ivf assemble: K=%d slot=%d padding factor %.2fx",
-                        k, slot, ids_padded.shape[0] / max(n, 1))
+        svs_logging.as_logger(kwargs.get("logger")).info(
+            "ivf assemble: K=%d probe units=%d slot=%d padding factor %.2fx",
+            k, centroids.shape[0], slot, ids_padded.shape[0] / max(n, 1))
         return cls(centroids, reordered, ids_padded, slot, n,
                    distance, rerank_data=rerank_data, n_clusters=k,
                    **kwargs)

@@ -298,6 +298,7 @@ def build_graph(data,
                 logger=None,
                 timer: Optional[timing.Timer] = None,
                 graph: Optional[NeighborGraph] = None,
+                _rounds: Optional[Tuple[int, int]] = None,
                 ) -> Tuple[NeighborGraph, int]:
     """Build a Vamana graph over ``data``; returns (graph, entry_point).
 
@@ -307,7 +308,10 @@ def build_graph(data,
     nearest row in a resident sample instead of the medioid (pass 1 masks
     sample rows not yet inserted).  ``graph``: the empty graph to build
     into (default ``NeighborGraph.empty(n, R)`` on the data's device; a
-    shard view builds sharded).
+    shard view builds sharded).  ``_rounds``: run only the rounds
+    ``[start, stop)`` of the ``2 * num_batches`` (pass 1's first), into
+    ``graph`` as an earlier call left it; a build cut into such segments
+    gives the uninterrupted build's graph (``benchmark/scale_10m.py``).
     """
     distance = dist_ops.as_distance(distance)
     params = params.resolved(distance)
@@ -347,6 +351,10 @@ def build_graph(data,
         max_iters = search_mod.default_max_iters(window)
         with timer.scope(f"pass {pass_idx + 1}"):
             for batch_idx in range(num_batches):
+                if _rounds is not None and not (
+                        _rounds[0] <= pass_idx * num_batches + batch_idx
+                        < _rounds[1]):
+                    continue
                 start = batch_idx * b
                 ids = np.arange(start, start + b, dtype=np.int32)
                 valid = ids < n

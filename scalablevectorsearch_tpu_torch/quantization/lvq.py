@@ -126,12 +126,15 @@ class LVQDataset:
     @classmethod
     def compress(cls, x, bits: int = 8, residual_bits: int = 0,
                  capacity: Optional[int] = None,
-                 device="cuda") -> "LVQDataset":
+                 device="cuda", mean=None) -> "LVQDataset":
         """Fit mean + per-vector (scale, bias) at ``bits``; optionally add a
-        ``residual_bits`` second level."""
+        ``residual_bits`` second level.  ``mean``: the (dim,) f32 mean to
+        remove instead of ``x``'s own (a block of rows of a larger
+        array)."""
         _check_bits(bits, residual_bits)
         x = np.asarray(x, dtype=np.float32)
-        mean = x.mean(axis=0)
+        mean = x.mean(axis=0) if mean is None else \
+            np.asarray(mean, dtype=np.float32)
         codes, scales, biases = _quantize_primary(x - mean, bits)
         res_codes = res_scales = None
         if residual_bits:
@@ -378,13 +381,33 @@ def _stored_codes(codes: np.ndarray, bits: int, dim: int) -> np.ndarray:
     return codes[:, :dim]
 
 
+def compress_host(x, bits: int = 8, residual_bits: int = 0,
+                  block_rows: int = 1 << 20) -> LVQDataset:
+    """:meth:`LVQDataset.compress` on the host (``device="cpu"``), in
+    blocks of ``block_rows`` rows: every step but the mean is per row, so
+    the blocks give the whole array's bits while the host holds one
+    block's float64 temporaries at a time."""
+    x = np.asarray(x, dtype=np.float32)
+    mean = x.mean(axis=0)
+    parts = [LVQDataset.compress(x[i:i + block_rows], bits, residual_bits,
+                                 device="cpu", mean=mean)
+             for i in range(0, max(x.shape[0], 1), block_rows)]
+    if len(parts) == 1:
+        return parts[0]
+    rows = {name: torch.cat([getattr(p, name)[: p.n] for p in parts])
+            for name in ("codes", "scales", "biases", "norms_sq",
+                         "res_codes", "res_scales", "full_norms_sq")}
+    return dataclasses.replace(parts[0], n=x.shape[0],
+                               **rows).with_capacity(x.shape[0])
+
+
 def compress_and_save_host(directory: str, x, bits: int = 8,
                            residual_bits: int = 0) -> None:
     """Compress and write an :class:`LVQDataset` checkpoint on the host,
-    with no dataset on the device: the bytes the JAX package's function of
-    this name writes (v0.0.2, the format of :meth:`LVQDataset.save`)."""
-    saveload.save_to_disk(LVQDataset.compress(x, bits, residual_bits,
-                                              device="cpu"), directory)
+    with no dataset on the device (:func:`compress_host`): the bytes the
+    JAX package's function of this name writes (v0.0.2, the format of
+    :meth:`LVQDataset.save`)."""
+    saveload.save_to_disk(compress_host(x, bits, residual_bits), directory)
 
 
 def _check_bits(bits: int, residual_bits: int) -> None:

@@ -923,3 +923,29 @@ def test_example_on_gpu_matches_cpu(cuda, name):
     assert got.keys() == want.keys()
     assert all(abs(got[k] - want[k]) <= 0.05 for k in got), (got, want)
     assert launched > 0 or name == "ivf"
+
+
+@pytest.mark.gpu
+def test_build_pruned_in_one_chunk_and_segments_gives_the_same_graph(cuda):
+    """The 10M run (``benchmark/scale_10m.py``) drives ``build_graph`` in
+    segments of rounds, and its prune-chunk trial prunes a round's 4096
+    rows in one chunk, where ``VamanaIndex.build`` runs every round in one
+    call and prunes 256 rows at a time: on the card the graph is the same
+    bit for bit (each row is pruned on its own; a batched product's rows
+    do not depend on the batch's size)."""
+    from scalablevectorsearch_tpu_torch.benchmark import scale_10m
+    from scalablevectorsearch_tpu_torch.index.vamana import build as bm
+    n, batch = 40_000, 4096
+    data, _ = svt.generate_test_dataset(n, 10, 96, seed=scale_10m.SEED)
+    ds = svt.VectorDataset.from_array(data, device="cuda")
+    params = scale_10m.build_parameters()
+    kw = dict(batch_size=batch, pop_width=4, tail_frac=4,
+              sampled_entries=True)
+    want, entry = bm.build_graph(ds, params, "l2", prune_chunk=256, **kw)
+    total, got = 2 * -(-n // batch), None
+    for start in range(0, total, 7):
+        got, _ = bm.build_graph(ds, params, "l2", entry_point=entry,
+                                prune_chunk=4096, graph=got,
+                                _rounds=(start, min(start + 7, total)), **kw)
+    assert torch.equal(got.adjacency, want.adjacency)
+    assert torch.equal(got.degrees, want.degrees)

@@ -49,6 +49,7 @@ PORT_MODULES = [
     "scalablevectorsearch_tpu_torch.utils.upgrader, "
     "scalablevectorsearch_tpu_torch.utils.svs_interop, "
     "scalablevectorsearch_tpu_torch.lib.native",
+    "scalablevectorsearch_tpu_torch.benchmark.scale_10m",
     "scalablevectorsearch_tpu_torch.parallel, "
     "scalablevectorsearch_tpu_torch.parallel.mesh, "
     "scalablevectorsearch_tpu_torch.parallel.sharded, "
